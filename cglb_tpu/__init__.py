@@ -1,6 +1,5 @@
-"""cglb_tpu: TPU-native CGLB — scalable GP regression with conjugate-gradient
-lower bounds (Artemev, Burt & van der Wilk, ICML 2021), built from scratch on
-JAX/XLA/Pallas.
+"""cglb_tpu: CGLB — scalable GP regression with conjugate-gradient lower bounds
+(Artemev, Burt & van der Wilk, ICML 2021), built from scratch on JAX/XLA/Pallas.
 
 Single-backend re-design of awav/CGLB: one functional JAX stack replaces the
 reference's parallel GPflow/TF and GPytorch/KeOps backends, with Pallas streaming

@@ -3,7 +3,7 @@
 The reference exposes a Backend ABC with TF and Torch implementations selected
 from a registry (cglb/backend/backend.py:34-115) and singledispatch interface
 modules per backend (tensorflow/interface.py, pytorch/interface.py).  This
-framework has exactly one backend — JAX/XLA on TPU — so those layers collapse
+framework has exactly one backend — JAX/XLA — so those layers collapse
 into: a ``Model`` wrapper (stateful convenience shell over the pure functional
 core, holding params + data + the CG warm-start state) and a ``Jax`` backend
 class with the same verbs (create_kernel/create_model/optimize/save/load/
@@ -61,7 +61,7 @@ class Model:
         # >0: on-device-optimizer training runs the dispatch-bounded step
         # (parallel/dispatch.py) with this many CG iterations per device
         # dispatch — full CG depth under per-dispatch wall-time limits
-        # (remote-worker watchdogs / preemption windows at N>=1M)
+        # (preemption windows at N>=1M)
         self.dispatch_bound = int(dispatch_bound)
         # metric evaluations reuse the training precision policy: "mixed"
         # selects the df32/gram fast paths for elbo/upper at scale
@@ -69,9 +69,9 @@ class Model:
             common_dtype = (run_cfg.common_dtype if run_cfg is not None
                             else "mixed")
         self.common_dtype = common_dtype
-        # multi-chip: a 1-D data mesh — CGLB losses run column-sharded with
-        # XLA collectives over ICI (parallel/sharded.py); every optimizer
-        # works unchanged because only loss_fn's internals change
+        # multi-device: a 1-D data mesh — CGLB losses run column-sharded with
+        # XLA collectives (parallel/sharded.py); every optimizer works
+        # unchanged because only loss_fn's internals change
         self.mesh = mesh
         if mesh is not None:
             from .parallel.sharded import shard_data
@@ -145,12 +145,7 @@ class Model:
                     return sharded_cglb_loss(params, X, Y, v0, cfg, mesh,
                                              matvec=mode)
             else:
-                make_pair = self._matvec_factory(pair=True)
-                # fast CG tier only in the loose training regime: at
-                # max_error >= 0.5 the ~1e-3 single-pass-bf16 operator error
-                # sits far below the stopping threshold, and the accurate
-                # assembly keeps the bound valid (ops/matvec_pallas docstring)
-                fast_cg = cfg.max_error >= 0.5
+                make_op = self._matvec_factory()
 
                 def fn(params, carry, X, Y):
                     # carry is either the raw v0 array or last feval's CGLBAux
@@ -159,15 +154,11 @@ class Model:
                         # trainable v: read from the params pytree so gradients
                         # flow into it through the bound assembly
                         v0 = params.v0.value
-                    matvec = matvec_cg = None
-                    if make_pair is not None:
-                        matvec, cg_tier = make_pair(
-                            params.kernel, X, params.noise_variance.value
-                        )
-                        matvec_cg = cg_tier if fast_cg else matvec
-                    l, aux = _cglb.loss(params, X, Y, v0, cfg, matvec=matvec,
-                                        matvec_cg=matvec_cg)
-                    return l, aux
+                    matvec = None
+                    if make_op is not None:
+                        matvec = make_op(params.kernel, X,
+                                         params.noise_variance.value)
+                    return _cglb.loss(params, X, Y, v0, cfg, matvec=matvec)
         else:
             raise NotImplementedError(kind)
         return fn
@@ -177,19 +168,13 @@ class Model:
         ``fn(params, carry, X, Y, max_error) -> (loss, aux)``.
 
         One compiled program serves every tolerance level of the adaptive
-        schedule (utils/training.scipy_tol_minimize; ``-o scipy_tol``).  CG
-        runs the ACCURATE streaming tier here: the cheap single-pass-bf16
-        tier's ~1e-3 operator error is only sound while the stopping
-        threshold dwarfs it (loss_fn's ``fast_cg`` gate), which no longer
-        holds once the schedule tightens below ~0.5."""
+        schedule (utils/training.scipy_tol_minimize; ``-o scipy_tol``)."""
         if self.kind not in _CGLB_KINDS:
             raise ValueError("adaptive CG tolerance requires a CGLB model")
         cfg = self.run_cfg
         joint = cfg.joint_optimization and not cfg.vzero
         if self.mesh is not None:
-            # sharded variant: same traced-tolerance threading; the sharded
-            # streaming matvec always contracts at HIGHEST so no tier switch
-            # is needed as the schedule tightens
+            # sharded variant: same traced-tolerance threading
             from .parallel.sharded import sharded_cglb_loss
 
             mesh = self.mesh
@@ -207,16 +192,16 @@ class Model:
                                          matvec=mode, max_error=max_error)
 
             return fn
-        make_pair = self._matvec_factory(pair=True)
+        make_op = self._matvec_factory()
 
         def fn(params, carry, X, Y, max_error):
             v0 = carry.v if isinstance(carry, _cglb.CGLBAux) else carry
             if joint and params.v0 is not None:
                 v0 = params.v0.value
             matvec = None
-            if make_pair is not None:
-                matvec, _ = make_pair(params.kernel, X,
-                                      params.noise_variance.value)
+            if make_op is not None:
+                matvec = make_op(params.kernel, X,
+                                 params.noise_variance.value)
             return _cglb.loss(params, X, Y, v0, cfg, matvec=matvec,
                               max_error=max_error)
 
@@ -237,22 +222,14 @@ class Model:
             n = self.data[0].shape[0]
             mode = ("streaming" if n >= self.STREAMING_THRESHOLD
                     else "dense")
-        kwargs = {}
-        if self.mesh is not None:
-            kwargs["block"] = 512  # the sharded loss path's default tile
         return bounded_train_step(self.run_cfg, optimizer, mesh=self.mesh,
                                   matvec=mode,
-                                  iters_per_dispatch=self.dispatch_bound,
-                                  **kwargs)
+                                  iters_per_dispatch=self.dispatch_bound)
 
-    def _matvec_factory(self, pair: bool = False):
+    def _matvec_factory(self):
         """None -> dense K materialization (reference TF backend behavior);
-        else a (kernel, X, sigma_sq) -> matvec builder using the streaming
-        Pallas operator (the KeOps-replacement; reference --keops).
-
-        pair=True: the builder returns (accurate_matvec, cg_matvec) sharing
-        one packed prep — the training loss hands the cheap tier to the CG
-        loop (ops/matvec_pallas.make_streaming_operator_pair)."""
+        else the (kernel, X, sigma_sq) -> matvec builder of the streaming
+        Pallas operator (the KeOps replacement; reference --keops)."""
         mode = self.matvec_mode
         n = self.data[0].shape[0]
         if mode == "dense":
@@ -261,15 +238,7 @@ class Model:
             return None
         from .ops import matvec_pallas as _mvp
 
-        # measured on v5e: 512 tiles win below ~16k rows, 1024 above
-        blk = 1024 if n >= 16384 else 512
-
-        def make_op(kernel, X, sigma_sq):
-            p = _mvp.make_streaming_operator_pair(kernel, X, sigma_sq, blk,
-                                                  blk)
-            return p if pair else p[0]
-
-        return make_op
+        return _mvp.make_streaming_operator
 
     def _carry_in(self):
         if self.kind in _CGLB_KINDS:
@@ -365,9 +334,8 @@ class Model:
                 cross_matvec = lambda v: _mvp.kernel_cross_matvec(
                     p.kernel, X, xs, v
                 )
-            # mixed MUST follow the training setting: the non-mixed
-            # [M, N] emulated-fp64 trisolve OOMs a 16 GiB chip at M=4096
-            # (the batched path already passed it; this one forgot)
+            # mixed follows the training setting: the non-mixed path
+            # materializes the [M, N] fp64 trisolve
             return _cglb.predict_f(
                 p, X, Y, v0, xs, cfg, cg_tolerance=cg_tolerance, matvec=matvec,
                 cross_matvec=cross_matvec, mixed=mixed,
@@ -378,11 +346,10 @@ class Model:
 
     def _default_predict_batch(self) -> int:
         """Memory-aware prediction batch: the per-batch Kus build makes
-        ~[8, M, B] f32 temporaries (df32 split matmul), so B must scale
-        as 1/M — a fixed 1e5 default let a 40k-row metrics eval compile a
-        19.5 GiB program at M=4096 on a 16 GiB chip (observed live).
-        Targets ~1 GiB per temp buffer; reference batching role:
-        pytorch/interface.py:580,637."""
+        ~[8, M, B] f32 temporaries (df32 split matmul), so B scales as 1/M,
+        targeting ~1 GiB per temp buffer — conservative for an 80 GB card;
+        re-deriving it from measured peak memory is open work (ROADMAP.md).
+        Reference batching role: pytorch/interface.py:580,637."""
         m = int(getattr(self.params, "num_inducing", 0) or 0)
         if m <= 0:
             return 100_000
@@ -732,7 +699,7 @@ class Jax:
                 # equivalent): tighten max_error 10x each time scipy
                 # converges with budget left — fixed-tolerance runs stall
                 # once line-search progress falls below the CG-slack
-                # objective jitter (PERF.md hard-variant diagnosis)
+                # objective jitter
                 res = _training.scipy_tol_minimize(
                     loss_fn, model.loss_fn_tol(), model.params, carry,
                     num_steps, logger, tol_start=model.run_cfg.max_error,
@@ -848,7 +815,7 @@ class Jax:
         return lambda: _metrics.call_metric_fns(core, rmse_lpd)
 
 
-BACKENDS = {"jax": Jax, "tpu": Jax, "xla": Jax}
+BACKENDS = {"jax": Jax, "xla": Jax}
 
 
 def get_backend(name: str):

@@ -6,10 +6,22 @@ interface.py:87-119).  We keep the same once-per-process model: a tiny module-le
 settings object consulted when *creating* models.  All jitted compute is purely
 functional; the settings only pick dtypes and constants at construction time.
 
-TPU note: fp64 is supported through XLA's software emulation (enabled via
-``jax.config.update("jax_enable_x64", True)``); the performance-critical matvec path
-has dedicated fp32/df64 Pallas kernels (see cglb_tpu/ops/matvec_pallas.py) so that
-the MXU is never asked to do emulated fp64 matmuls in the hot loop.
+Importing this module also sets two process-wide JAX options that every entry
+point (library, CLI, scripts, chip_smoke.py) passes through:
+
+- fp64 (``jax_enable_x64``) unless JAX_ENABLE_X64 opts out;
+- ``jax_default_matmul_precision = "highest"``: on the GPU an f32 matmul at the
+  default precision runs in TF32 (~1e-3 relative).  The f32 products on the
+  training path — the Nystrom preconditioner's A A^T and applies
+  (models/cglb._make_precond, ops/preconditioners), the f32 A build
+  (models/sgpr._gram_terms), the preconditioner Cholesky's backward
+  (ops/chol64), the distance expansion in ``-t fp32`` runs (ops/kernels) and
+  every model product in ``-t fp32`` runs — need true f32.  Most of them also
+  pass ``precision=HIGHEST`` explicitly; this setting covers the rest.  fp64
+  products are unaffected.  The streaming matvec kernel has no dot at all.
+
+and keeps XLA's persistent compilation cache in ``JAX_COMPILATION_CACHE_DIR``
+when that is set, otherwise in ``.jax_cache/`` at the root of the checkout.
 """
 
 from __future__ import annotations
@@ -113,11 +125,14 @@ if os.environ.get("JAX_ENABLE_X64", "").lower() not in ("0", "false"):
     enable_x64()
 
 
-# Honor JAX_PLATFORMS explicitly: in environments where a TPU PJRT plugin
-# registers itself, the env var alone can lose to the plugin at backend init —
-# the config update is authoritative as long as no backend has been touched
-# yet (same technique as tests/conftest.py; lets CLI entry points run forced
-# CPU meshes, e.g. `JAX_PLATFORMS=cpu ... --mesh 8` with
+jax.config.update("jax_default_matmul_precision", "highest")
+
+
+# Honor JAX_PLATFORMS explicitly: a plugin imported before this module can
+# freeze the platform list from the original environment — the config update
+# is authoritative as long as no backend has been touched yet (same technique
+# as tests/conftest.py; lets CLI entry points run forced CPU meshes, e.g.
+# `JAX_PLATFORMS=cpu ... --mesh 8` with
 # --xla_force_host_platform_device_count).
 _platforms_env = os.environ.get("JAX_PLATFORMS", "")
 if _platforms_env:
@@ -127,20 +142,20 @@ if _platforms_env:
         pass
 
 
-def enable_compilation_cache(path: Optional[str] = None) -> None:
-    """Persistent XLA compilation cache.  fp64-heavy CGLB graphs can take
-    minutes to compile on TPU toolchains (fp64 emulation multiplies the HLO);
-    caching makes that a one-time cost per (shape, config)."""
-    path = path or os.environ.get(
-        "CGLB_COMPILE_CACHE", os.path.expanduser("~/.cache/cglb_tpu_xla")
-    )
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+# the checkout's own cache directory (listed in .gitignore): a fixed path, so
+# later processes in the same checkout find what earlier ones compiled
+_REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
 
 
-if os.environ.get("CGLB_COMPILE_CACHE", "") != "off":
-    try:
-        enable_compilation_cache()
-    except Exception:  # cache is an optimization, never a requirement
-        pass
+def compilation_cache_dir() -> str:
+    """``JAX_COMPILATION_CACHE_DIR`` if set (JAX reads it itself), else the
+    checkout's ``.jax_cache/``."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or _REPO_CACHE_DIR
+
+
+# fp64-heavy CGLB graphs take long to compile; the persistent cache makes
+# that a one-time cost per (shape, config).  JAX reads the env var itself.
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", _REPO_CACHE_DIR)

@@ -73,7 +73,7 @@ class InducingVariableConfig(Config):
 
     def init(self, data: Data, kernel, seed: int = 0) -> np.ndarray:
         # prefer the OpenMP C++ implementation: the selection is sequential in
-        # M, so per-step device dispatch dominates the jitted TPU version
+        # M, so per-step device dispatch dominates the jitted device version
         # (~minutes at M=1024) while the native one finishes in seconds
         try:
             from .utils.native import conditional_variance_native, \

@@ -19,7 +19,7 @@ New vs reference: ``-o lbfgs`` (pure-JAX on-device L-BFGS), ``-o lbfgs_native``
 schedule with inducing-point freezing), ``-o scipy_tol`` (adaptive
 CG-tolerance schedule: tightens max_error 10x each time scipy converges with
 budget left — a refinement/plateau diagnostic, not a stall rescue; see
-PERF.md "scipy_tol showdown", utils/training.scipy_tol_minimize),
+utils/training.scipy_tol_minimize),
 and ``--matvec {auto,dense,streaming}``
 replacing the ``--keops`` toggle (streaming = Pallas blockwise matvec;
 ``--keops``/``--no-keops`` kept as compatible aliases).
@@ -251,24 +251,24 @@ def _attach_leaves(group: click.Group) -> None:
               help="compat alias: --keops == --matvec streaming")
 @click.option("--common-dtype", type=click.Choice(["float64", "mixed"]),
               default="mixed",
-              help="mixed (default) = df32 kernel profile + fp64 solves, "
-                   "fp64-grade accuracy without emulated-fp64 transcendentals;"
-                   " float64 = all-fp64 (see PERF.md)")
+              help="mixed (default) = df32 kernel profile + gram-form fp64 "
+                   "matmuls, fp64-grade accuracy without fp64 "
+                   "transcendentals; float64 = all-fp64")
 @click.option("--mesh", type=int, default=0,
-              help="multi-chip: shard CGLB training over a 1-D data mesh of "
+              help="multi-device: shard CGLB training over a 1-D data mesh of "
                    "this many devices (-1 = all visible); 0/1 = single device")
 @click.option("--max-cg-iters", type=int, default=100,
               help="CG iteration cap (reference hardcodes 100, tensorflow/"
                    "models.py:36-38).  At N>=1M each CG iteration is a multi-"
                    "second streaming matvec: cap it to bound single-dispatch "
-                   "time (warm-started training measures 7.2 mean / 20 max "
-                   "steps per feval at the kin40k protocol point, PERF.md)")
+                   "time (warm-started training needs a handful of steps "
+                   "per feval)")
 @click.option("--dispatch-bound", type=int, default=0,
               help="adam-family training: run the dispatch-bounded step "
                    "with this many CG iterations per device dispatch "
                    "(0 = monolithic).  Full CG depth under per-dispatch "
-                   "wall-time limits — remote-worker watchdogs / "
-                   "preemption windows at N>=1M (parallel/dispatch.py)")
+                   "wall-time limits — worker watchdogs / preemption "
+                   "windows at N>=1M (parallel/dispatch.py)")
 @click.pass_context
 def main(ctx, backend, float_type, logdir, seed, matvec, keops, common_dtype,
          mesh, max_cg_iters, dispatch_bound):

@@ -110,9 +110,9 @@ def _synthetic(name: str, seed: int = 0):
     X = rng.normal(size=(n, dim))
     if hard:
         # protocol-length stand-in: the plain generator below converges to
-        # its noise floor in ~15 L-BFGS iterations at kin40k scale (scipy
-        # stops with a legitimate CONVERGENCE status long before the
-        # reference's 2000-step budget — PERF.md "Protocol-length run").
+        # its noise floor within tens of L-BFGS iterations at kin40k scale
+        # (scipy stops with a legitimate CONVERGENCE status long before the
+        # reference's 2000-step budget).
         # This variant keeps hyperparameter learning active much longer:
         # multi-scale random-feature banks (frequencies spanning ~30x) over
         # per-dimension relevance weights (so the ARD lengthscales must

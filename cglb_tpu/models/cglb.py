@@ -55,16 +55,14 @@ class CGLBConfig:
     joint_optimization: bool = static_field(default=False)
     vzero: bool = static_field(default=False)
     logdet_variant: str = static_field(default="jensen")
-    # dtype of the Nystrom preconditioner apply inside CG: float32 keeps the
-    # per-iteration [M, N] contractions on the TPU fast path (10x at M=2048,
-    # N=40k); preconditioning tolerates the 1e-7 noise.  Set "float64" for
-    # bitwise-fp64 paths.
+    # dtype of the Nystrom preconditioner apply inside CG: float32 halves the
+    # bytes of the per-iteration [M, N] contractions; preconditioning
+    # tolerates the 1e-7 noise.  Set "float64" for bitwise-fp64 paths.
     precond_dtype: str = static_field(default="float32")
     # "mixed" (default): fp64 distance assembly + two-float-f32 kernel profile
-    # (ops/df32, ~1e-11/entry) + fp64 solves — avoids TPU's emulated-fp64
-    # transcendentals at matching-to-~1e-14 bound values (identical-v
-    # comparison; PERF.md).  "float64": all-fp64 (chunked at scale), for
-    # bitwise reference semantics.
+    # (ops/df32, ~1e-11/entry) + gram-form fp64 matmuls in place of the
+    # [M, N] trisolve (models/sgpr._gram_terms).  "float64": all-fp64
+    # (chunked at scale), for bitwise reference semantics.
     common_dtype: str = static_field(default="mixed")
 
     @property
@@ -160,12 +158,12 @@ def _make_precond(ct: CommonTerms, sigma_sq, cfg: CGLBConfig,
                                          Ci=ct.LBi)
     A = ct.A.astype(pd)
     M = A.shape[0]
-    # precision=HIGHEST: at Precision.DEFAULT an f32 matmul lowers to bf16
-    # MXU passes on TPU (~4e-3 relative), which would reintroduce the LB/A
-    # mismatch this function exists to eliminate — with ||AAT|| ~ 1/sigma^2
-    # the bf16 error exceeds the +I shift at small noise and the cholesky /
-    # Woodbury identity breaks down (CPU tests run at HIGHEST by default and
-    # cannot catch this).
+    # precision=HIGHEST: at the default precision an f32 matmul runs in TF32
+    # on the GPU (~1e-3 relative), which would reintroduce the LB/A mismatch
+    # this function exists to eliminate — with ||AAT|| ~ 1/sigma^2 the TF32
+    # error exceeds the +I shift at small noise and the cholesky / Woodbury
+    # identity breaks down (CPU runs compute f32 products in full precision
+    # and cannot catch this).
     AAT = jnp.dot(A, A.T, precision=jax.lax.Precision.HIGHEST)
     # fused chol+inverse: matmul-only VJP, and Ci makes every CG-loop
     # preconditioner apply matmul-only (see NystromPreconditioner.Ci)
@@ -175,19 +173,11 @@ def _make_precond(ct: CommonTerms, sigma_sq, cfg: CGLBConfig,
 
 def _quad_form_bound(params: SGPRParams, ct: CommonTerms, X, Y, v0,
                      cfg: CGLBConfig, matvec=None, max_error=None,
-                     consistent_ct: bool = False, matvec_cg=None
+                     consistent_ct: bool = False
                      ) -> Tuple[jnp.ndarray, CGLBAux]:
     """-ub on 0.5 err^T (K+s2I)^-1 err, plus the new warm start.
 
     reference: tensorflow/models.py:150-173.
-
-    matvec_cg: optional cheaper operator for the CG ITERATIONS only (e.g.
-    the single-pass-bf16 streaming tier, ops/matvec_pallas).  Sound for any
-    accuracy: CG merely proposes v, and the bound below is assembled from
-    the accurate ``matvec`` — lb(v) is a valid lower bound for EVERY v, and
-    r/error_bound use the true residual, so an inexact-operator v only
-    loosens the reported bound (KeOps plays the same fast-inner-loop role in
-    the reference, pytorch/models.py:251-252).
     """
     sigma_sq = params.noise_variance.value
     err = Y - mean_apply(params.mean, X)
@@ -203,8 +193,7 @@ def _quad_form_bound(params: SGPRParams, ct: CommonTerms, X, Y, v0,
     else:
         me = cfg.max_error if max_error is None else max_error
         v, stats = _cg.preconditioned_cg(
-            matvec_cg if matvec_cg is not None else matvec,
-            err_t, v0, P, me, cfg.max_cg_iters, cfg.restart_cg_iters
+            matvec, err_t, v0, P, me, cfg.max_cg_iters, cfg.restart_cg_iters
         )
         # preconditioned_cg already stop-gradients its result.
 
@@ -225,24 +214,21 @@ def _quad_form_bound(params: SGPRParams, ct: CommonTerms, X, Y, v0,
 def bound(params: SGPRParams, X, Y, v0, cfg: CGLBConfig = CGLBConfig(),
           jitter: float = None, matvec: Optional[Callable] = None,
           remat_common_terms: Optional[bool] = None,
-          matvec_cg: Optional[Callable] = None,
           max_error: Optional[jnp.ndarray] = None
           ) -> Tuple[jnp.ndarray, CGLBAux]:
     """The CGLB lower bound on log p(Y|X).  Returns (bound, aux).
 
     reference: tensorflow/models.py:175-192.
-    matvec_cg: optional cheap operator for the CG iterations only (see
-    _quad_form_bound).
     max_error: optional TRACED override of cfg.max_error (a scalar jit
     argument), letting callers tighten the CG stopping tolerance at runtime
     without recompiling — the adaptive-tolerance optimizer schedule
     (utils/training.scipy_tol_minimize) rides on this.
 
     remat_common_terms: rematerialize Kuf/A/AAT in the backward pass instead
-    of storing the O(N M) intermediates.  Default (None) decides by size:
-    storing beats recomputing when it fits — measured 2.05 s vs 2.79 s per
-    loss+grad at kin40k/M=2048 on v5e (PERF.md) — and the gram-form mixed
-    path stores little enough that kin40k-scale problems fit comfortably.
+    of storing the O(N M) intermediates.  Default (None) decides by size
+    (sgpr.REMAT_THRESHOLD_ELEMENTS): storing beats recomputing when it fits,
+    and the gram-form mixed path stores little enough that kin40k-scale
+    problems fit comfortably.
     Applied at the CHUNK level (jax.checkpoint on the lax.map body inside
     _gram_terms/_kuf_terms, which is always engaged above this threshold):
     a whole-function checkpoint is not enough, because its backward re-runs
@@ -262,20 +248,18 @@ def bound(params: SGPRParams, X, Y, v0, cfg: CGLBConfig = CGLBConfig(),
     b = -0.5 * N * D * math.log(2.0 * math.pi)
     b += _logdet_bound(params, ct, X, Y, cfg.logdet_variant)
     quad, aux = _quad_form_bound(params, ct, X, Y, v0, cfg, matvec,
-                                 consistent_ct=not gram,
-                                 matvec_cg=matvec_cg, max_error=max_error)
+                                 consistent_ct=not gram, max_error=max_error)
     b += quad
     return b, aux
 
 
 def loss(params: SGPRParams, X, Y, v0, cfg: CGLBConfig = CGLBConfig(),
          jitter: float = None, matvec: Optional[Callable] = None,
-         matvec_cg: Optional[Callable] = None,
          max_error: Optional[jnp.ndarray] = None
          ) -> Tuple[jnp.ndarray, CGLBAux]:
     """Training loss = -bound; aux carries the CG warm start + stats."""
     b, aux = bound(params, X, Y, v0, cfg, jitter, matvec,
-                   matvec_cg=matvec_cg, max_error=max_error)
+                   max_error=max_error)
     return -b, aux
 
 
@@ -306,7 +290,7 @@ def predict_prepare(params: SGPRParams, X, Y, v0,
     solve at ``cg_tolerance`` (1e-3 default; None / vzero / joint reuse v0
     as-is), and the [M, D] residual projection.
 
-    mixed=True keeps the O(N M^2) work off the emulated-fp64 trisolve at
+    mixed=True keeps the O(N M^2) work off the fp64 [M, N] trisolve at
     scale (gram-form AAT/LB + a chunked df32 Kuf pass for A @ res — both
     fp64-grade; see models/sgpr.py)."""
     sigma_sq = params.noise_variance.value
@@ -355,7 +339,7 @@ def predict_from_cache(params: SGPRParams, cache: PredictCache, X, Xnew,
 
     cross_matvec: optional p [B, N] -> p K(X, Xnew) [B, S] closure — at
     scale the streaming version avoids materializing the [S, N] cross
-    kernel (its fp64 matmul would blow HBM; see PERF.md)."""
+    kernel in device memory)."""
     Z = params.inducing_Z.value
     v, c = cache.v, cache.c
     if cross_matvec is not None:
@@ -398,9 +382,8 @@ def predict_f(params: SGPRParams, X, Y, v0, Xnew, cfg: CGLBConfig = CGLBConfig()
     out of the batch loop).
 
     mixed=True routes the one-time common terms through the gram-form
-    df32 build — REQUIRED at scale: the non-mixed [M, N] emulated-fp64
-    trisolve's temporaries blow HBM (measured: 45.4 GiB demanded at
-    M=4096, N=26800 on a 16 GiB chip, while the mixed path fits)."""
+    df32 build, whose temporaries stay [M, chunk]-sized at scale (the
+    non-mixed path materializes the [M, N] trisolve)."""
     cache = predict_prepare(params, X, Y, v0, cfg, cg_tolerance, jitter,
                             matvec, mixed=mixed)
     return predict_from_cache(params, cache, X, Xnew, full_cov=full_cov,

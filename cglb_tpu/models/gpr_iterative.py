@@ -5,7 +5,7 @@ The reference's "Iterative GP" baseline is gpytorch's ExactGP marginal
 log-likelihood — internally CG + Lanczos with Hutchinson trace estimation on
 KeOps matvecs (consumed at cglb/backend/pytorch/interface.py:326-442; the
 machinery itself lives in gpytorch, SURVEY.md section 2.9).  This module is
-the first-party TPU-native equivalent:
+the first-party equivalent:
 
     lml ~= -0.5 y^T alpha - 0.5 logdet_SLQ - N/2 log 2pi
     alpha      : CG solve of (K + s2 I) alpha = y        (streaming matvec)
@@ -140,9 +140,7 @@ def iterative_lml(params: GPRParams, X, Y, key,
     if matvec is None:
         from ..ops import matvec_pallas as _mvp
 
-        matvec = _mvp.make_streaming_operator(
-            params.kernel, X, sigma_sq, 1024, 1024
-        )
+        matvec = _mvp.make_streaming_operator(params.kernel, X, sigma_sq)
 
     # ---- detached solves ----
     sg_matvec = lambda p: jax.lax.stop_gradient(matvec(jax.lax.stop_gradient(p)))
@@ -193,9 +191,7 @@ def predict_f_iterative(params: GPRParams, X, Y, Xnew,
     err = Y - mean_apply(params.mean, X)
     big = N > 4096
     if big:
-        matvec = _mvp.make_streaming_operator(
-            params.kernel, X, sigma_sq, 1024, 1024
-        )
+        matvec = _mvp.make_streaming_operator(params.kernel, X, sigma_sq)
         cross = lambda p: _mvp.kernel_cross_matvec(params.kernel, X, Xnew, p)
     else:
         matvec = _op.make_dense_operator(params.kernel, X, sigma_sq)

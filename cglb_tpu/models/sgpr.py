@@ -13,10 +13,10 @@ preconditioner (reference: cglb/backend/tensorflow/models.py:58-75):
     A  = L^-1 Kuf / sigma                    [M, N]
     B  = A A^T + I,  LB = chol(B)            [M, M]
 
-TPU notes: Kuf is [M, N] with N large; A is produced by one triangular solve
-(O(N M^2), MXU-bound).  Everything M x M is tiny and replicated; for the sharded
-path the N-axis of Kuf/A is row-sharded and AAT/Aerr become psum reductions
-(see cglb_tpu/parallel/).
+Kuf is [M, N] with N large; A is produced by one triangular solve (O(N M^2),
+matmul-bound).  Everything M x M is small and replicated; for the sharded path
+the N-axis of Kuf/A is row-sharded and AAT/Aerr become psum reductions (see
+cglb_tpu/parallel/).
 """
 
 from __future__ import annotations
@@ -125,29 +125,26 @@ def _kuu_chol(params: SGPRParams, jitter: float):
 
 def _kuu_chol_inv(params: SGPRParams, jitter: float):
     """(L, L^-1) for chol(Kuu + jitter I) with the same 1000x-jitter retry as
-    _kuu_chol, via the fused ops/chol64 primitive: ONE cholesky expander
-    instance, a matmul-only backward, and the explicit inverse that lets the
-    gram path replace every downstream fp64 trisolve with a matmul (each
-    avoided fp64 [M, M] expander instance saves ~22-30 s of TPU compile —
-    PERF.md "Cold compile").  The mixed/gram paths use this; the
-    common_dtype='float64' reference-parity path keeps _kuu_chol's native
-    autodiff."""
+    _kuu_chol, via the fused ops/chol64 primitive: ONE cholesky, a
+    matmul-only backward, and the explicit inverse that lets the gram path
+    replace every downstream fp64 trisolve with a matmul.  The mixed/gram
+    paths use this; the common_dtype='float64' reference-parity path keeps
+    _kuu_chol's native autodiff."""
     kuu = _k.K(params.kernel, params.inducing_Z.value)
     return chol_inv_retry(kuu, jitter)
 
 
-# above this many Kuf elements the chunked path kicks in automatically: fp64
-# matmul/trisolve on TPU is emulated by materializing stacked f32 splits
-# ([8, M, N] temporaries), so unchunked [M, N] solves blow HBM at kin40k scale.
+# above this many Kuf elements the chunked path kicks in automatically, so the
+# [M, N]-sized temporaries of the kernel build and the solves stay bounded.
+# The value is conservative for an 80 GB card; re-deriving it from measured
+# peak memory is open work (ROADMAP.md).
 CHUNK_THRESHOLD_ELEMENTS = 32 * 1024 * 1024
 
 # above this many Kuf elements the chunked builders' backward is
 # rematerialized per chunk (jax.checkpoint on the lax.map body): stored scan
 # residuals run ~30-40 bytes/element (fp64 Kuf + d2 + f32 A + df32
-# intermediates), so 128M elements ~ 4-5 GB — comfortably inside a 16 GB
-# chip even with CG state, packed matvec tensors, and multi-output RHS
-# resident (a 200M threshold left no headroom).  Below it, storing beats
-# recomputing by ~0.7 s/feval at kin40k scale (PERF.md).
+# intermediates), so 128M elements ~ 4-5 GB.  Below it, storing beats
+# recomputing.  Conservative for an 80 GB card, like the chunk threshold.
 REMAT_THRESHOLD_ELEMENTS = 128 * 1024 * 1024
 
 
@@ -213,174 +210,30 @@ def _kuf_terms(params: SGPRParams, L, X, sigma_scale, W=None,
     return A, AAT, AW
 
 
-def _kuf_block_df32(params: SGPRParams, Z, Xc, pallas: bool = True,
-                    mesh=None, data_axis=None):
+def _kuf_block_df32(params: SGPRParams, Z, Xc):
     """Kuf block at fp64-grade accuracy without fp64 transcendentals.
 
-    TPU fast path (``pallas=True``, the default): the fused Pallas builder
-    (ops/kuf_pallas) — df32 direct-difference d2 assembly in one Pallas
-    pass + the XLA df32 profile fused behind it, analytic matmul-only
-    backward.  Measured at kin40k shape the XLA route below spends ~152 of
-    156 ms in the emulated-fp64 norm-expansion d2 (~7 HBM passes over the
-    [M, N] output); the fused builder is 37.6 ms fwd / 38.3 ms fwd+grad vs
-    170 / 280 ms for this route (scripts/bench_kuf.py, on-chip).
-    Under a TPU mesh (``mesh``/``data_axis`` given) the same builder runs
-    per-device via shard_map (ops/kuf_pallas.kuf_build_sharded) — each
-    device assembles its own column block, cotangents psum over ICI.  A
-    bare ``pallas_call`` inside the GSPMD graph would silently replicate
-    (no SPMD partitioning rule), hence the explicit shard_map wrapper; a
-    non-TPU mesh (CPU test meshes) or a non-divisible N falls back to the
-    XLA route below, whose ops GSPMD partitions row-wise.
-
-    XLA route: the squared distance is assembled exactly in fp64 (one
-    small-D matmul + O(NM) adds), and the profile rho(d2) is evaluated in
-    compensated two-float f32 arithmetic (ops/df32): ~1e-11 relative per
-    entry, ~f32 cost.  Round 1's plain-f32 build (1e-7 per entry) lost
-    ~3e-4 on the bound because the L^-1 trisolve amplifies entry errors by
-    kappa(Kuu) — df32 keeps the amplified error below 1e-8 (PERF.md)."""
+    The squared distance is assembled exactly in fp64 (one small-D matmul +
+    O(NM) adds), and the profile rho(d2) is evaluated in compensated
+    two-float f32 arithmetic (ops/df32): ~1e-11 relative per entry.  A
+    plain-f32 build (1e-7 per entry) loses ~3e-4 on the bound because the
+    L^-1 trisolve amplifies entry errors by kappa(Kuu) — df32 keeps the
+    amplified error below 1e-8.  Under a mesh GSPMD partitions these ops
+    row-wise like any other XLA op."""
     from ..ops import df32 as _df
 
     ls = params.kernel.lengthscales.value
     var = params.kernel.variance.value
-    if pallas:
-        from ..ops import kuf_pallas as _kp
-
-        if mesh is None:
-            if _kp.supported(params.kernel, Xc.dtype, Xc.shape[1]):
-                return _kp.kuf_build(params.kernel, Z, Xc)
-        elif (mesh.devices.flat[0].platform == "tpu"
-              and Xc.shape[0] % mesh.shape[data_axis] == 0
-              and _kp.supported(params.kernel, Xc.dtype, Xc.shape[1])):
-            return _kp.kuf_build_sharded(params.kernel, Z, Xc, mesh,
-                                         data_axis)
-    # d2 stays EXACT fp64 (norm-expansion cancellation must happen at fp64:
-    # a df32 assembly loses ~3.5 digits on uncentered / small-lengthscale
-    # data where zn + xn >> d2, and XLA fuses these few emulated-fp64
-    # elementwise passes well enough that the df32 variant measured no
-    # faster); only the transcendental profile runs in df32.
+    # d2 stays EXACT fp64: the norm-expansion cancellation must happen at
+    # fp64 (a df32 assembly loses ~3.5 digits on uncentered / small-
+    # lengthscale data where zn + xn >> d2); only the transcendental profile
+    # runs in df32.
     d2 = _k.scaled_sq_dist(Z, Xc, ls)
     if isinstance(params.kernel, _k.SquaredExponential):
         rho = _df.rbf_unit(d2)
     else:
         rho = _df.matern32_unit(d2)
     return var * rho
-
-
-# Forward algorithm for _gram_outer: "fp64" = native/emulated-fp64 matmul;
-# "int8" = exact fixed-point int8-limb MXU matmuls (ops/intgram); "auto"
-# (default) picks per backend at trace time.  Measured at [2048, 16384] on
-# v5e against a host-fp64 oracle (PERF.md): int8 is 22 ms at 3.1e-16 error
-# while XLA's emulated-fp64 dot is 229 ms at 8.7e-9 — int8 is both ~10x
-# faster AND the only fp64-grade option on TPU.  On CPU the native f64
-# matmul is exact and fast, so "auto" keeps it.
-GRAM_FORWARD = "auto"
-
-
-def _gram_forward_algo():
-    if GRAM_FORWARD == "auto":
-        return "int8" if jax.default_backend() == "tpu" else "fp64"
-    return GRAM_FORWARD
-
-
-@jax.custom_vjp
-def _gram_outer(kuf, var):
-    """G = Kuf Kuf^T with an fp64-grade forward and an f32-HIGHEST backward.
-
-    The forward must hold fp64 grade (the AAT sandwich amplifies G errors by
-    kappa(L)^2; the 1e-10 AAT budget rules out plain-f32 matmuls): either
-    the emulated-fp64 matmul or the exact int8-limb scheme (GRAM_FORWARD;
-    ``var`` is the entry bound the fixed-point scaling needs — G itself does
-    not depend on it given kuf, so its cotangent is zero).  The BACKWARD
-    does not: dKuf = (dG + dG^T) Kuf only feeds gradient descent, and its
-    f32-HIGHEST evaluation (exact bf16x6 products, f32 accumulation over
-    the M=2048 contraction) carries ~3e-6 relative error — far below any
-    line-search sensitivity — while costing ~1/20 of the emulated-fp64
-    matmul that dominated the backward pass (PERF.md round 3).  The
-    ``common_dtype='float64'`` path never routes through here, so bitwise
-    fp64 gradients remain available."""
-    if _gram_forward_algo() == "int8":
-        from ..ops.intgram import MAX_K, gram_exact_int8
-
-        # beyond MAX_K the int32 accumulators could overflow (globally, even
-        # under GSPMD sharding) — fall back to the emulated-fp64 matmul
-        if kuf.shape[1] <= MAX_K:
-            return gram_exact_int8(kuf, var)
-    return kuf @ kuf.T
-
-
-def _gram_outer_fwd(kuf, var):
-    return _gram_outer(kuf, var), (kuf, var)
-
-
-def _gram_outer_bwd(res, dG):
-    kuf, var = res
-    sym = (dG + dG.T).astype(jnp.float32)
-    dk = jnp.dot(sym, kuf.astype(jnp.float32),
-                 precision=jax.lax.Precision.HIGHEST)
-    return dk.astype(kuf.dtype), jnp.zeros_like(var)
-
-
-_gram_outer.defvjp(_gram_outer_fwd, _gram_outer_bwd)
-
-
-@jax.custom_vjp
-def _mm_f64grade(A, B):
-    """C = A @ B at fp64 grade with a cheap analytic backward.
-
-    The general-matmul companion to :func:`_gram_outer`, for the mixed
-    path's remaining [M, M] fp64 products (the AAT sandwich Cinv G Cinv^T
-    and the Cinv @ U projections).  On TPU the forward runs the signed
-    int8-limb exact scheme (ops/intgram.matmul_exact_int8, per-row/column
-    power-of-two scaling — both fp64-grade and ~10x cheaper than the
-    emulated-fp64 dot, PERF.md); on CPU the native fp64 matmul is already
-    both.  The backward mirrors the forward's platform split: f32-HIGHEST
-    (exact bf16x6 products) on TPU where emulated-fp64 matmuls are the
-    cost, native fp64 on CPU where they are free — gradients only feed
-    descent directions, and the ~3e-6 relative f32 error is far below
-    line-search sensitivity (same argument as _gram_outer_bwd)."""
-    if _gram_forward_algo() == "int8" and A.shape[1] <= MAX_INTGRAM_K():
-        from ..ops.intgram import matmul_exact_int8
-
-        return matmul_exact_int8(A, B)
-    return A @ B
-
-
-def MAX_INTGRAM_K():
-    from ..ops.intgram import MAX_K
-
-    return MAX_K
-
-
-def _mm_f64grade_fwd(A, B):
-    return _mm_f64grade(A, B), (A, B)
-
-
-# Backward algorithm for _mm_f64grade, SEPARATE from the forward switch so
-# the backward stays identical across forward algos (the mixed-path grad
-# tests pin int8-vs-fp64 forward differences at fp64 grade): "auto" = f32 on
-# TPU (native fp64 matmuls don't exist there), fp64 elsewhere.
-MM_BACKWARD = "auto"
-
-
-def _mm_backward_algo():
-    if MM_BACKWARD == "auto":
-        return "f32" if jax.default_backend() == "tpu" else "fp64"
-    return MM_BACKWARD
-
-
-def _mm_f64grade_bwd(res, dC):
-    A, B = res
-    if _mm_backward_algo() == "f32":
-        dCf = dC.astype(jnp.float32)
-        dA = jnp.dot(dCf, B.astype(jnp.float32).T,
-                     precision=jax.lax.Precision.HIGHEST)
-        dB = jnp.dot(A.astype(jnp.float32).T, dCf,
-                     precision=jax.lax.Precision.HIGHEST)
-        return dA.astype(A.dtype), dB.astype(B.dtype)
-    return dC @ B.T, A.T @ dC
-
-
-_mm_f64grade.defvjp(_mm_f64grade_fwd, _mm_f64grade_bwd)
 
 
 def _aat_sandwich(L, G, sigma_scale):
@@ -399,13 +252,11 @@ def _gram_terms(params: SGPRParams, L, X, sigma_scale, W=None,
                 chunk_size: int = None, a_dtype=jnp.float32,
                 with_a: bool = True, Cinv=None, mesh=None,
                 data_axis: str = "data", remat: bool = False):
-    """Mixed-mode fast path: the O(N M^2) work never runs through TPU's
-    emulated-fp64 triangular solve.
+    """Mixed-mode fast path: the O(N M^2) work runs as matmuls, never as an
+    fp64 [M, N] triangular solve.
 
-    Measured on v5e at M=2048, N=40960 (PERF.md): the emulated-fp64 trisolve
-    L^-1 Kuf is 606 ms while an emulated-fp64 matmul of the same FLOPs is
-    200 ms.  So accumulate the fp64 Gram matrix G = Kuf Kuf^T (and U =
-    Kuf @ W) over column chunks — matmuls only — then form
+    Accumulate the fp64 Gram matrix G = Kuf Kuf^T (and U = Kuf @ W) over
+    column chunks — matmuls only — then form
 
         AAT = L^-1 G L^-T / sigma^2     (two [M, M] fp64 trisolves, ~1/20 N/M
         AW  = L^-1 U / sigma            of the big-solve cost)
@@ -428,28 +279,23 @@ def _gram_terms(params: SGPRParams, L, X, sigma_scale, W=None,
     a_dtype at HIGHEST precision (error eps32 ||Cinv|| ||Kuf|| <= the f32
     trisolve's eps32 kappa(L) ||A|| bound, because Cinv itself is fp64-
     accurate — unlike the f32-computed explicit inverse that once made the
-    Woodbury preconditioner indefinite).  Motivation is COMPILE time as much
-    as runtime: each avoided fp64 [M, M] trisolve expander instance (and
-    each trisolve the chol/solve VJPs would add to the backward) costs
-    ~22-30 s of XLA compile on TPU (PERF.md "Cold compile").
+    Woodbury preconditioner indefinite).
 
     mesh: optional jax.sharding.Mesh.  When given, every chunk is
     constrained to span ALL devices of the mesh's ``data_axis`` (rows of
     each X chunk sharded), so the ``lax.map`` steps run data-parallel and
-    the per-chunk Gram partials psum over ICI; G/AAT come out replicated
-    and A column-sharded.  This is the large-N sharded common-terms path
-    (parallel/sharded.py) — without chunking, the per-shard [M, N_shard]
-    fp64 Gram product materializes [8, M, N_shard] f32 emulation splits
-    and blows HBM at houseelectric scale (measured: 45 GB at N=1.37M,
-    M=1024 on one v5e chip — PERF.md "Large-N training graph").
+    the per-chunk Gram partials psum across devices; G/AAT come out
+    replicated and A column-sharded.  This is the large-N sharded
+    common-terms path (parallel/sharded.py); chunking keeps the per-device
+    [M, chunk] temporaries bounded.
 
     remat: checkpoint the per-chunk body, so the lax.map backward
     recomputes each chunk's Kuf/d2/A instead of storing the stacked
     residuals (which are [M, N]-sized in aggregate: fp64 kuf_c alone is
     10.5 GiB at houseelectric scale — the chunked FORWARD is bounded but
     an un-rematted backward is not).  Callers engage it by size
-    (models/cglb.REMAT_THRESHOLD_ELEMENTS); below the threshold storing
-    beats recomputing by ~0.7 s/feval at kin40k scale (PERF.md).
+    (REMAT_THRESHOLD_ELEMENTS); below the threshold storing beats
+    recomputing.
     """
     import jax
 
@@ -472,11 +318,9 @@ def _gram_terms(params: SGPRParams, L, X, sigma_scale, W=None,
         if mesh is not None:
             # each chunk spans every device of the data axis, so the
             # per-device slice is chunk/n_dev: scale the auto chunk up to
-            # keep per-device temporaries at the single-device budget — but
-            # stay below the int8 gram path's GLOBAL k bound
-            # (ops/intgram.MAX_K guards on the traced, i.e. global,
-            # contraction extent).  An explicit chunk_size is honored as-is.
-            chunk_size = min(chunk_size * mesh.shape[data_axis], 96 * 1024)
+            # keep per-device temporaries at the single-device budget.  An
+            # explicit chunk_size is honored as-is.
+            chunk_size = chunk_size * mesh.shape[data_axis]
 
     L_cast = (Cinv if Cinv is not None else L).astype(a_dtype)
     sigma_cast = sigma_scale.astype(a_dtype)
@@ -488,11 +332,9 @@ def _gram_terms(params: SGPRParams, L, X, sigma_scale, W=None,
         # the final A = A_t.T is a view whose consumers are all dots (the
         # preconditioner), into which XLA folds the transpose.  The previous
         # moveaxis(stack, 0, 1).reshape(M, -1) materialized a full [M, N]
-        # layout copy — measured 5.24 GiB EXTRA live next to A itself at
-        # houseelectric scale (PERF.md "Large-N training graph").
+        # layout copy, an extra [M, N] buffer live next to A itself.
         xc = _cst(xc, data_axis, None)
-        kuf_c = _cst(_kuf_block_df32(params, Z, xc, mesh=mesh,
-                                     data_axis=data_axis) * mask[None, :],
+        kuf_c = _cst(_kuf_block_df32(params, Z, xc) * mask[None, :],
                      None, data_axis)
         if with_a and Cinv is not None:
             a_t = jnp.dot(kuf_c.astype(a_dtype).T, L_cast.T,
@@ -503,13 +345,10 @@ def _gram_terms(params: SGPRParams, L, X, sigma_scale, W=None,
             ) / sigma_cast).T
         else:
             a_t = jnp.zeros((kuf_c.shape[1], 0), dtype=a_dtype)
-        # _gram_outer: fp64-grade forward, f32-HIGHEST backward — saves
-        # ~0.4 s of emulated-fp64 dG@Kuf per feval at kin40k/M=2048
-        # (PERF.md round 3); var bounds the entries for the int8 forward.
         # Under a mesh the Gram/U partials contract over the sharded column
-        # axis — constraining them replicated makes XLA emit the ICI psum.
+        # axis — constraining them replicated makes XLA emit the psum.
         return (
-            _cst(_gram_outer(kuf_c, params.kernel.variance.value)),
+            _cst(kuf_c @ kuf_c.T),
             _cst(kuf_c @ wc),
             _cst(a_t, data_axis, None) if with_a else a_t,
         )
@@ -543,9 +382,7 @@ def _gram_terms(params: SGPRParams, L, X, sigma_scale, W=None,
             if with_a else None
 
     if Cinv is not None:
-        # both [M, M] products at fp64 grade WITHOUT the emulated-fp64 dot
-        # (int8-limb exact on TPU; ~0.15-0.25 s/feval at M=2048, PERF.md)
-        AAT = _mm_f64grade(_mm_f64grade(Cinv, G), Cinv.T) / (
+        AAT = (Cinv @ G @ Cinv.T) / (
             sigma_scale * sigma_scale
         )
         AAT = 0.5 * (AAT + AAT.T)
@@ -554,7 +391,7 @@ def _gram_terms(params: SGPRParams, L, X, sigma_scale, W=None,
     AW = None
     if W is not None:
         if Cinv is not None:
-            AW = _mm_f64grade(Cinv, U) / sigma_scale
+            AW = (Cinv @ U) / sigma_scale
         else:
             AW = jsl.solve_triangular(L, U, lower=True) / sigma_scale
     if not with_a:
@@ -565,7 +402,7 @@ def _gram_terms(params: SGPRParams, L, X, sigma_scale, W=None,
 def kuf_weighted(params: SGPRParams, L, X, W, sigma_scale,
                  chunk_size: int = None, Cinv=None):
     """AW = L^-1 (Kuf @ W) / sigma_scale at fp64-grade without the [M, N]
-    emulated-fp64 trisolve: df32 Kuf blocks + fp64 matmuls in one chunked
+    fp64 trisolve: df32 Kuf blocks + fp64 matmuls in one chunked
     pass, then one small [M, D] solve — or a matmul against ``Cinv``
     (= L^-1, from the fused chol_inv) when the caller has it.  Serves the
     prediction cache's residual projection at scale (models/cglb.py
@@ -608,13 +445,13 @@ def common_terms(params: SGPRParams, X, jitter: float = None,
     """Reference semantics: cglb/backend/tensorflow/models.py:58-75.
 
     For large N the fp64 path runs the O(N M) solve in column chunks under
-    ``lax.map`` so the fp64-emulation temporaries stay bounded (exact fp64
+    ``lax.map`` so the [M, N]-sized fp64 temporaries stay bounded (exact fp64
     math either way).
 
     ``mixed=True`` evaluates the kernel profile in df32 (two-float f32,
     ~1e-11 per entry — see _kuf_block_df32) and, with ``gram`` (defaults to
     ``mixed``), restructures the O(N M^2) contractions into Gram-matrix
-    matmuls so no emulated-fp64 trisolve touches the [M, N] block (see
+    matmuls so no fp64 trisolve touches the [M, N] block (see
     _gram_terms); A is then materialized in ``a_dtype`` (f32 default — its
     only training-loss consumer is the f32 Nystrom preconditioner).  Paths
     needing exact fp64 A at scale (the N2M ablation, prediction) pass
@@ -629,8 +466,7 @@ def common_terms(params: SGPRParams, X, jitter: float = None,
     gram = mixed if gram is None else gram
     if mixed and gram:
         # fused chol+inverse (ops/chol64): matmul-only backward, and Cinv
-        # turns every downstream trisolve into a matmul — together this cut
-        # the loss+grad cold compile from ~300 s (PERF.md "Cold compile")
+        # turns every downstream trisolve into a matmul
         L, Cinv = _kuu_chol_inv(params, jitter)
         A, AAT, _ = _gram_terms(params, L, X, sigma, chunk_size=chunk_size,
                                 a_dtype=a_dtype, Cinv=Cinv, remat=remat)
@@ -658,7 +494,7 @@ def elbo(params: SGPRParams, X, Y, jitter: float = None,
          mixed: bool = False, remat: bool = None) -> jnp.ndarray:
     """Titsias (2009) collapsed ELBO, the reference's `elbo` metric.
 
-    mixed=True uses the df32/gram fast path (fp64-grade, no emulated-fp64
+    mixed=True uses the df32/gram fast path (fp64-grade, no fp64
     [M, N] trisolve — the same trade as the CGLB training default; A itself
     is never needed here so the f32 solve is skipped entirely).
     remat: per-chunk backward rematerialization (None = by size; matters
@@ -760,9 +596,7 @@ class SGPRPredictCache(NamedTuple):
     c: jnp.ndarray   # [M, D] LB^-1 (A @ err) / sigma
     L: jnp.ndarray
     LB: jnp.ndarray
-    # optional L^-1 / LB^-1 (mixed path): per-batch solves become matmuls —
-    # on TPU the [M, S] fp64 trisolve is both ~3x the runtime of the
-    # equal-FLOPs matmul and a per-instance XLA-expander compile cost
+    # optional L^-1 / LB^-1 (mixed path): per-batch solves become matmuls
     Li: jnp.ndarray = None
     LBi: jnp.ndarray = None
 
@@ -770,7 +604,7 @@ class SGPRPredictCache(NamedTuple):
 def predict_prepare(params: SGPRParams, X, Y, jitter: float = None,
                     mixed: bool = False) -> SGPRPredictCache:
     """The batch-independent half of predict_f.  mixed=True keeps the
-    O(N M^2) work off the emulated-fp64 trisolve at scale (gram path)."""
+    O(N M^2) work off the fp64 [M, N] trisolve at scale (gram path)."""
     from .. import config as _config
 
     jitter = jitter if jitter is not None else _config.default_jitter()
@@ -794,7 +628,7 @@ def predict_prepare(params: SGPRParams, X, Y, jitter: float = None,
 def _cache_solves(cache, Kus):
     """tmp1 = L^-1 Kus, tmp2 = LB^-1 tmp1 — matmuls against the cached
     inverses when available (mixed path), trisolves otherwise.  HIGHEST
-    pins the f32-model case off the bf16 MXU lowering; fp64 is exact."""
+    keeps the f32-model case out of TF32; fp64 is unaffected."""
     hi = jax.lax.Precision.HIGHEST
     if cache.Li is not None:
         tmp1 = jnp.dot(cache.Li, Kus, precision=hi)

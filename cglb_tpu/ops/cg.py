@@ -2,8 +2,8 @@
 
 The reference runs CG two ways: a tf.while_loop compiled by XLA (cglb/backend/
 tensorflow/models.py:107-148) and a host-side Python loop over KeOps matvecs with a
-cuda-sync per iteration (cglb/backend/pytorch/conjugate_gradient.py:41-86).  The
-TPU-native design is the former, generalized: ``jax.lax.while_loop`` with a static
+cuda-sync per iteration (cglb/backend/pytorch/conjugate_gradient.py:41-86).  This
+design is the former, generalized: ``jax.lax.while_loop`` with a static
 state pytree, a caller-supplied matvec (dense XLA, Pallas streaming, or shard_map
 row-sharded), dynamic stopping on the preconditioner-norm error, and periodic
 residual restarts.

@@ -1,45 +1,34 @@
-"""Fused fp64 Cholesky primitives whose backward passes are pure matmuls.
+"""Fused Cholesky primitives whose backward passes are pure matmuls.
 
-Why this module exists (measured on v5e, kin40k shapes, PERF.md "Cold
-compile"): every fp64 [M, M] ``cholesky`` / ``triangular_solve`` HLO the
-TPU pipeline sees costs ~22-30 s of XLA COMPILE time, independent of graph
-context — a bare fp64 [2048, 2048] cholesky (24 StableHLO lines) compiles
-in 21.7 s.  The expander lowers it to blocked while-loops, the X64 rewriter
-then splits every fp64 op into f32x2 pairs, and the optimization pipeline
-grinds on the result.  Worse, the standard chol/trisolve VJPs insert MORE
-expander instances into the backward graph, which is how the CGLB loss+grad
-reached a 300 s cold compile (~6 forward + ~8 backward instances).
-
-The fix: factor once, invert once, and never solve again.
+Factor once, invert once, and never solve again:
 
     chol_inv(P)        -> (L, C)   L = chol(P), C = L^-1
     chol_inv_retry(P,j) -> (L, C)  same, with the 1000x-jitter retry folded
                                    into ONE cholesky instance (lax.while_loop)
 
-With the explicit fp64 triangular inverse C in hand, every downstream
-"solve with L" is a matmul (C @ rhs), and — the key part — the Cholesky VJP
-itself needs only matmuls:
+With the explicit triangular inverse C in hand, every downstream "solve with
+L" is a matmul (C @ rhs), and — the key part — the Cholesky VJP itself needs
+only matmuls:
 
     P_bar = 0.5 C^T (Phi + Phi^T) C,   Phi = phi(L^T L_bar),
 
 (phi = lower triangle with halved diagonal; Murray 2016, "Differentiation
 of the Cholesky decomposition", eq. 8 — the L^-1 factors usually applied by
 trisolves are exactly C).  The inverse output's cotangent folds in as
-L_bar += -C^T C_bar C^T.  So each fused call costs exactly TWO expander
-instances (chol + the one trisolve producing C) and ZERO in the backward.
+L_bar += -C^T C_bar C^T.  So each fused call costs one factorization and one
+triangular solve in the forward and none in the backward.  The forward is
+XLA's native ``cholesky`` / ``triangular_solve`` (cuSOLVER on the GPU).
 
-Numerics: C carries eps64*kappa(L) relative error (backward-stable solve
-against I), so C-based products inherit the same eps64*kappa^2 envelope as
+Numerics: C carries eps*kappa(L) relative error (backward-stable solve
+against I), so C-based products inherit the same eps*kappa^2 envelope as
 the trisolve sandwich they replace (models/sgpr._gram_terms docstring);
-with the 1e-6 jitter floor that is <=1e-10 relative on AAT — asserted
-against the trisolve path in tests/test_chol64.py.  Runtime is a wash or
-better: an emulated-fp64 [M, M] trisolve is ~3x the cost of the equal-FLOPs
-emulated matmul (PERF.md), and the backward loses all its trisolves.
+with the 1e-6 jitter floor that is <=1e-10 relative on AAT in fp64 —
+asserted against the trisolve path in tests/test_chol64.py.
 
 Gradient convention: ``jnp.linalg.cholesky`` reads only the lower triangle
 but JAX's JVP symmetrizes the tangent, making the VJP cotangent symmetric;
 we return the symmetrized P_bar, which matches ``jax.grad`` of the native
-op to fp64 roundoff for symmetric inputs (asserted in tests).
+op to roundoff for symmetric inputs (asserted in tests).
 """
 
 from __future__ import annotations
@@ -53,294 +42,8 @@ from jax import lax
 
 __all__ = ["chol_inv", "chol_inv_retry"]
 
-# Factorization algorithm for fp64 inputs: "expander" = XLA's native
-# cholesky/triangular_solve lowering; "blocked" = the fori_loop block
-# factorization below (one SMALL expander instance per op); "auto" picks
-# blocked on TPU for divisible sizes.  Measured at [2048, 2048] fp64 on v5e
-# (chained-in-jit timing; PERF.md "Cold compile"):
-#
-#                      expander          blocked (b=256)
-#   cholesky           143.7 ms / ~24 s  ~60 ms  / ~4 s   (runtime/compile)
-#   L^-1 (vs trisolve)  37.6 ms / ~23 s  ~20 ms  / ~4 s
-#
-# The expander's compile cost scales with M ([256] 1.7 s -> [2048] 24 s),
-# so pushing the big factorization into a rolled loop over [256] blocks +
-# fp64 matmuls pays on both axes.
-ALGO = "auto"
-BLOCK = 256
-
-# Coupled Newton refinement steps for the f32-seeded fp64 leaf
-# factorization (_leaf_chol_inv).  Both errors contract quadratically
-# (e_L' ~ e_L(e_L + e_C), e_C' ~ e_C^2 + e_L'), so from the f32 seed's
-# eps32*kappa_leaf three steps reach the fp64 floor for equilibrated leaf
-# condition up to ~1e5; beyond that the residual check fails and the
-# lax.cond fallback takes the fp64 expander leaf instead.
-REFINE_STEPS = 3
-
-# Matmul algorithm for the O(M^2 b) / O(M^3) products INSIDE the blocked
-# forward loops (the Schur update in _blocked_chol, the substitution
-# products in _blocked_tri_inv).  "auto" = native dots everywhere; "int8"
-# forces exact int8-limb MXU matmuls (ops/intgram.matmul_exact_int8,
-# 8 limbs = 56-bit payload >= fp64's 53 — a forcible branch kept for
-# tests, with the accuracy half proven in test_chol64).  MEASURED DEAD END
-# for runtime (2026-08-19, v5e, chained scalar-readback timing of
-# chol_inv [2048, 2048] fp64): int8 in-loop 264.7 ms vs native emulated
-# 223.4 ms.  Two reasons: (a) the X64-rewritten fp64 dot is ~1 TFLOP/s
-# in-graph at these shapes (NOT the ~0.075 TFLOP/s an earlier dispatch-
-# polluted standalone measurement suggested), so a square [2048, 2048]
-# int8-limb product (18.2 ms) ties the emulated one (17.8 ms) — int8 only
-# wins on long-k gram shapes; and (b) the per-iteration quantize/recombine
-# passes are pure overhead inside the loop.  The honest cost profile of
-# the blocked fp64 chol_inv is instead dominated by the 8 sequential
-# [256] native cholesky expander calls at 16.5 ms EACH (while-loop
-# overhead proportional to M, not FLOPs) — which is what _leaf_chol_inv's
-# f32-seed + Newton-refinement design attacks (a Pallas df32 rank-1 leaf
-# kernel was probed first and is a measured dead end: ~0.43 s/leaf even
-# stripped to plain f32, per-step scalar extraction latency-bound —
-# PERF.md "Leaf factorization").
-FORWARD_MM = "auto"
-
-
-def _block_for(M: int) -> int:
-    """Panel width for the blocked factorization at this M.
-
-    Measured per-instance chol_inv FORWARD on v5e (scripts/bench_chol4096.py,
-    fp64, kappa ~1e5, chained-in-jit timing):
-
-        M=2048:  b=256 58.7 ms   b=512 44.4 ms   b=1024 51.6 ms
-        M=4096:  b=256 458 ms    b=512 293 ms    b=1024 260 ms
-
-    Wider panels amortize the emulated-fp64 products' short-k inefficiency
-    and the per-leaf/per-iteration loop overhead; too wide and the trailing
-    updates lose width.  b = M/4 clamped to [BLOCK, 1024] tracks the
-    measured optimum at both protocol shapes (the backward is block-size
-    independent — it only sees L and C).  Indivisible M falls back to the
-    base BLOCK, whose divisibility _use_blocked already checked.  (A global
-    f32-seeded Newton refinement with int8-limb exact residuals was probed
-    as the alternative at M=4096: 365 ms — correct to the fp64 floor but
-    beaten by the wide-panel loop, since an int8 [4096, 4096] square
-    product (55.6 ms) only ties the emulated-fp64 one (63.4 ms).)"""
-    b = min(1024, max(BLOCK, M // 4))
-    return b if M % b == 0 else BLOCK
-
-
-def _fwd_mm_algo(dtype) -> str:
-    if FORWARD_MM == "auto":
-        return "native"
-    return FORWARD_MM
-
-
-def _fwd_mm(A, B):
-    """A @ B for the blocked-loop bodies: exact int8 limbs on the TPU fp64
-    path, native dot (HIGHEST, for the forced-f32 case) otherwise."""
-    if _fwd_mm_algo(A.dtype) == "int8":
-        from .intgram import MAX_K, matmul_exact_int8
-
-        if A.shape[1] <= MAX_K:
-            return matmul_exact_int8(A, B, batched=True)
-    return jnp.dot(A, B, precision=jax.lax.Precision.HIGHEST)
-
-
-def _use_blocked(M: int, dtype) -> bool:
-    # f32 too: the preconditioner's [M, M] chol/tri-inv (models/cglb.
-    # _make_precond) is an expander instance in every training graph; its
-    # f32 expander compile cost scales with M like the fp64 one (minus the
-    # X64 rewrite), while the blocked runtime difference is a few ms ONCE
-    # per objective.  The blocked matmuls run at HIGHEST so f32 never
-    # drops to bf16 MXU passes.
-    if ALGO == "auto":
-        return (
-            jax.default_backend() == "tpu"
-            and dtype in (jnp.float64, jnp.float32)
-            and M % BLOCK == 0
-            and M >= 2 * BLOCK
-        )
-    return ALGO == "blocked"
-
-
-def _use_leaf(M: int, dtype) -> bool:
-    # small-M fp64 factorizations (protocol sweep points M in {128, 256},
-    # and any M below the blocked path's 2*BLOCK/divisibility threshold)
-    # fit in ONE refinement leaf — route them straight through
-    # _leaf_chol_inv instead of paying the fp64 expander's ~16.5 ms
-    # while-loop overhead per [256] of M (measured: chol_inv[256] 3.22 ms
-    # leaf vs 21.05 ms expander pair).  ALGO="leaf" forces the branch
-    # off-TPU for tests.
-    if ALGO == "auto":
-        return (
-            jax.default_backend() == "tpu"
-            and dtype == jnp.float64
-            and 16 <= M < 2 * BLOCK
-        )
-    return ALGO == "leaf"
-
-
-def _leaf_chol_inv(Dkk):
-    """(Lkk, Lkk^-1) of one SPD diagonal block.
-
-    fp64 path: the native fp64 cholesky/trisolve leaves are the measured
-    runtime sink of the blocked factorization — 16.5 ms per [256] leaf on
-    v5e, ALL of it expander while-loop overhead (the 11 MFLOP of real work
-    is microseconds; any 256-iteration XLA loop costs ~98 us/iter on this
-    chip).  f32, by contrast, hits the TPU's native Cholesky at 0.69 ms.
-    So: equilibrate to unit diagonal (fp64, exact-by-construction scaling
-    recovery), seed L and C = L^-1 from the f32 native ops, then run
-    REFINE_STEPS coupled Newton corrections in which the only fp64 work is
-    the two cancellation-critical residuals per step:
-
-        R = I  - C L        ->  C += (R C)        [correction in f32]
-        E = Ds - L L^T      ->  L += L phi(C E C^T)   [correction in f32]
-
-    Both errors contract quadratically; the fp64-matmul residuals set the
-    floor at fp64 grade (the f32 corrections only carry eps32 RELATIVE to
-    the already-small correction, a second-order term).  A final residual
-    check gates a lax.cond fallback to the fp64 expander leaf for blocks
-    whose equilibrated condition exceeds the f32 seed's basin (~1e7) — the
-    fallback branch costs compile (one [b, b] expander pair, ~2 s) but
-    executes only when taken.  Non-PD blocks: the f32 seed NaNs, the
-    residual check fails, the expander reproduces the NaN — the
-    chol_inv_retry contract is preserved bit-for-bit in kind.
-
-    f32 path (the preconditioner's factorization): the native ops ARE the
-    fast path; no refinement."""
-    dt = Dkk.dtype
-    b = Dkk.shape[0]
-    eyeb = jnp.eye(b, dtype=dt)
-    if dt != jnp.float64:
-        L = jnp.linalg.cholesky(Dkk)
-        return L, jsl.solve_triangular(L, eyeb, lower=True)
-
-    L, C, ok = _leaf_refined(Dkk)
-
-    def _refined(_):
-        return L, C
-
-    def _expander(_):
-        Lx = jnp.linalg.cholesky(Dkk)
-        return Lx, jsl.solve_triangular(Lx, eyeb, lower=True)
-
-    return lax.cond(ok, _refined, _expander, None)
-
-
-def _leaf_refined(Dkk):
-    """The refinement half of _leaf_chol_inv: (L, C, ok) in the ORIGINAL
-    scaling, ok = the residual gate that decides refined-vs-expander."""
-    dt = Dkk.dtype
-    b = Dkk.shape[0]
-    f32 = jnp.float32
-    hi = jax.lax.Precision.HIGHEST
-    eyeb = jnp.eye(b, dtype=dt)
-    s = jnp.sqrt(jnp.diagonal(Dkk))
-    si = 1.0 / s
-    Ds = Dkk * (si[:, None] * si[None, :])
-
-    Lf = jnp.linalg.cholesky(Ds.astype(f32))
-    Cf = jsl.solve_triangular(Lf, jnp.eye(b, dtype=f32), lower=True)
-    L, C = Lf.astype(dt), Cf.astype(dt)
-    for _ in range(REFINE_STEPS):
-        R = eyeb - jnp.dot(C, L)  # fp64: the cancellation step
-        C = C + jnp.dot(R.astype(f32), C.astype(f32),
-                        precision=hi).astype(dt)
-        E = Ds - jnp.dot(L, L.T)  # fp64
-        F = jnp.dot(jnp.dot(C.astype(f32), E.astype(f32), precision=hi),
-                    C.astype(f32).T, precision=hi)
-        L = L + jnp.dot(L.astype(f32), _phi(F), precision=hi).astype(dt)
-
-    # converged-to-floor vs diverged/stuck is a >1e4 gap: the floors are
-    # ~sqrt(b)*eps64 (E) and ~eps64*sqrt(kappa) (R, rounding of the fp64
-    # product itself), while a seed outside the basin leaves O(1) or NaN
-    e_ok = jnp.max(jnp.abs(Ds - jnp.dot(L, L.T))) < 1e-9
-    r_ok = jnp.max(jnp.abs(eyeb - jnp.dot(C, L))) < 1e-7
-    return s[:, None] * L, C * si[None, :], e_ok & r_ok
-
-
-def _blocked_chol(P, b: int = None):
-    """Right-looking blocked Cholesky as a lax.fori_loop with f32-seeded
-    Newton-refined leaves (_leaf_chol_inv): the O(M^2 b) trailing updates
-    AND the panel solves are fp64 matmuls (the panel multiplies by the
-    leaf inverse the refinement produces anyway), so the only expander
-    instances left are the [b, b] fallback pair inside the leaf's
-    lax.cond.  Returns (L, Dinv) with Dinv the [nb, b, b] stack of leaf
-    inverses — _blocked_tri_inv consumes them, which kills its batched
-    trisolve.  A non-PD diagonal block NaNs its panel and every later
-    step, so the retry's finite check works exactly as with the native
-    op."""
-    b = b or BLOCK
-    M = P.shape[0]
-    nb = M // b
-    row_ids = jnp.arange(M)
-
-    def body(k, carry):
-        S, L, Dinv = carry
-        kb = k * b
-        Dkk = lax.dynamic_slice(S, (kb, kb), (b, b))
-        Lkk, Ckk = _leaf_chol_inv(Dkk)
-        col = lax.dynamic_slice(S, (0, kb), (M, b))
-        # panel = S[:, kb:kb+b] Lkk^-T = col @ Ckk^T; rows above kb are
-        # stale Schur garbage -> masked to the zeros the lower factor
-        # needs there; rows [kb, kb+b) are overwritten with Lkk itself so
-        # the stored diagonal block is EXACTLY the matrix Ckk inverts
-        # (native dots at HIGHEST — DEFAULT f32 matmuls lower to bf16 MXU
-        # passes on TPU; FORWARD_MM="int8" forces the dead-end limb branch)
-        pan = _fwd_mm(col, Ckk.T)
-        pan = jnp.where((row_ids >= kb)[:, None], pan, 0.0)
-        pan = lax.dynamic_update_slice(pan, Lkk, (kb, 0))
-        L = lax.dynamic_update_slice(L, pan, (0, kb))
-        S = S - _fwd_mm(pan, pan.T)
-        Dinv = lax.dynamic_update_slice(Dinv, Ckk[None], (k, 0, 0))
-        return S, L, Dinv
-
-    _, L, Dinv = lax.fori_loop(
-        0, nb, body,
-        (P, jnp.zeros_like(P), jnp.zeros((nb, b, b), P.dtype)),
-    )
-    return L, Dinv
-
-
-def _blocked_tri_inv(L, Dinv=None, b: int = None):
-    """C = L^-1 by block forward substitution: the diagonal-block inverses
-    come from _blocked_chol's leaves when available (Dinv), else from one
-    BATCHED [nb, b, b] trisolve; the fori_loop body is two matmuls —
-    total fp64-matmul FLOPs equal to one [M, M, M] product."""
-    b = b or BLOCK
-    M = L.shape[0]
-    nb = M // b
-    if Dinv is None:
-        diag = jax.vmap(
-            lambda k: lax.dynamic_slice(L, (k * b, k * b), (b, b))
-        )(jnp.arange(nb))
-        Dinv = jsl.solve_triangular(
-            diag,
-            jnp.broadcast_to(jnp.eye(b, dtype=L.dtype), (nb, b, b)),
-            lower=True,
-        )  # [nb, b, b]
-    cols = jnp.arange(M)
-
-    def body(k, C):
-        kb = k * b
-        Lrow = lax.dynamic_slice(L, (kb, 0), (b, M))
-        # I[kb:kb+b, :] without a dynamic slice of eye
-        irow = (cols[None, :] == (kb + jnp.arange(b))[:, None]).astype(
-            L.dtype
-        )
-        # rows j >= k of C are still zero, and L's strict upper is zero, so
-        # Lrow @ C is exactly sum_{j<k} L[k,j] C[j,:].  Products via _fwd_mm
-        # (native dots; see _blocked_chol's Schur note and FORWARD_MM)
-        rows = _fwd_mm(Dinv[k], irow - _fwd_mm(Lrow, C))
-        return lax.dynamic_update_slice(C, rows, (kb, 0))
-
-    return lax.fori_loop(0, nb, body, jnp.zeros_like(L))
-
-
-def _chol(P):
-    if _use_blocked(P.shape[0], P.dtype):
-        return _blocked_chol(P, _block_for(P.shape[0]))[0]
-    return jnp.linalg.cholesky(P)
-
 
 def _tri_inv(L):
-    if _use_blocked(L.shape[0], L.dtype):
-        return _blocked_tri_inv(L, b=_block_for(L.shape[0]))
     return jsl.solve_triangular(
         L, jnp.eye(L.shape[0], dtype=L.dtype), lower=True
     )
@@ -351,73 +54,19 @@ def _phi(X):
     return jnp.tril(X) - 0.5 * jnp.diag(jnp.diagonal(X))
 
 
-# Backward matmul algorithm for the five [M, M] cotangent products:
-#   "auto"  = native-dtype products for fp64 inputs, explicit f32-HIGHEST
-#             for f32 inputs on TPU;
-#   "int8" / "f32" / "fp64" force a branch (tests).
-# Measured dead ends, kept as forcible branches with the numbers (kin40k
-# feval probes, 2026-08-19):
-#   * f32-HIGHEST for fp64 inputs: the backward sandwiches cotangents
-#     between C = L^-1 twice, so f32 ACCUMULATION noise amplifies with
-#     kappa(P) — cotangent error 3.5e-6 at kappa=1e2 but 8e-4 at kappa=1e6
-#     (reachable for Kuu at the 1e-6 jitter floor).  A compensated split
-#     (A = Ah + Al, 3 f32-HIGHEST products) measures the SAME 9e-4 at
-#     kappa=1e6: the noise is the f32 accumulator, not the input cast, so
-#     splitting cannot fix it.
-#   * int8 exact limbs (5-limb batched, ops/intgram): accuracy excellent
-#     and kappa-robust (6e-7 at kappa=1e6, 2.7e-6 at 1e8), but the chained
-#     quantize/recombine overhead LOST 0.48 s/feval (1.300 vs 0.824 s) and
-#     +290 s cold compile at the kin40k shape; the per-pair form pushed the
-#     cold compile past 900 s.
-# So fp64 inputs keep the emulated-fp64 products (~50 ms per chol_inv
-# instance — the accuracy they need at a price nothing measured beats).
-# f32 inputs (the preconditioner's chol) use explicit f32-HIGHEST: a plain
-# `@` at DEFAULT precision lowers to bf16 MXU passes on TPU (~4e-3 error),
-# so the explicit precision is a correctness guard there, not a speedup.
-BACKWARD = "auto"
-
-
-def _bwd_algo(dtype) -> str:
-    if BACKWARD == "auto":
-        if jax.default_backend() == "tpu" and dtype != jnp.float64:
-            return "f32"  # explicit HIGHEST: the bf16-lowering guard
-        return "fp64"
-    return BACKWARD
-
-
 def _chol_bwd_matmul(L, C, dL, dC):
-    """Shared backward: cotangents (dL, dC) -> symmetric dP, matmuls only."""
-    algo = _bwd_algo(L.dtype)
-    if algo == "int8":
-        from .intgram import MAX_K, matmul_exact_int8
+    """Shared backward: cotangents (dL, dC) -> symmetric dP, matmuls only.
 
-        if L.shape[0] <= MAX_K:
-            # 5 limbs (35-bit input quantization, kappa-amplified to ~1e-5
-            # at kappa=1e8 — 2000x finer than f32's cast) and BATCHED: the
-            # per-pair form's 43 dot HLOs per product blew the loss+grad
-            # cold compile past 900 s (five sites; intgram docstring)
-            mm = lambda a, b: matmul_exact_int8(a, b, limbs=5, batched=True)
-        else:
-            mm = lambda a, b: a @ b  # pragma: no cover - M > 130k unplanned
-        gL = dL - mm(C.T, mm(dC, C.T))
-        Phi = _phi(mm(L.T, gL))
-        return mm(C.T, mm(0.5 * (Phi + Phi.T), C))
-    if algo == "f32":
-        hi = jax.lax.Precision.HIGHEST
-        f = jnp.float32
-        Lf, Cf = L.astype(f), C.astype(f)
-        dLf, dCf = dL.astype(f), dC.astype(f)
-        # C = L^-1: <dC, -C dL C> = <-C^T dC C^T, dL>
-        gL = dLf - jnp.dot(Cf.T, jnp.dot(dCf, Cf.T, precision=hi),
-                           precision=hi)
-        Phi = _phi(jnp.dot(Lf.T, gL, precision=hi))
-        Pbar = jnp.dot(Cf.T, jnp.dot(0.5 * (Phi + Phi.T), Cf, precision=hi),
-                       precision=hi)
-        return Pbar.astype(L.dtype)
-    gL = dL - C.T @ (dC @ C.T)
-    Phi = _phi(L.T @ gL)
-    Pbar = C.T @ (0.5 * (Phi + Phi.T)) @ C
-    return Pbar
+    Every product asks for Precision.HIGHEST: for f32 inputs (the
+    preconditioner's factorization, models/cglb._make_precond) a default-
+    precision product runs in TF32 on the GPU, and the backward sandwiches
+    the cotangent between C = L^-1 twice, amplifying that error with
+    kappa(P).  fp64 products are unaffected by the setting."""
+    mm = lambda a, b: jnp.dot(a, b, precision=lax.Precision.HIGHEST)
+    # C = L^-1: <dC, -C dL C> = <-C^T dC C^T, dL>
+    gL = dL - mm(C.T, mm(dC, C.T))
+    Phi = _phi(mm(L.T, gL))
+    return mm(C.T, mm(0.5 * (Phi + Phi.T), C))
 
 
 @jax.custom_vjp
@@ -426,15 +75,8 @@ def chol_inv(P):
 
     The inverse is computed by ONE triangular-solve pass; callers that only
     consume L (no grad) get it DCE'd by XLA."""
-    if _use_blocked(P.shape[0], P.dtype):
-        b = _block_for(P.shape[0])
-        L, Dinv = _blocked_chol(P, b)
-        return L, _blocked_tri_inv(L, Dinv, b)
-    if _use_leaf(P.shape[0], P.dtype):
-        return _leaf_chol_inv(P)
-    L = _chol(P)
-    C = _tri_inv(L)
-    return L, C
+    L = jnp.linalg.cholesky(P)
+    return L, _tri_inv(L)
 
 
 def _chol_inv_fwd(P):
@@ -457,8 +99,7 @@ def chol_inv_retry(P, jitter: float):
     optimization; same two-attempt policy as models/sgpr._kuu_chol had).
 
     The retry lives in a ``lax.while_loop`` so the graph contains exactly
-    ONE cholesky expander instance instead of two cond branches — the
-    lax.cond version cost an extra ~25 s of TPU compile.  custom_vjp makes
+    ONE cholesky instead of two cond branches.  custom_vjp makes
     the while_loop reverse-differentiable: the gradient is that of a single
     factorization at the jitter that was actually used (the same as the old
     cond-based gradient through the selected branch)."""
@@ -467,44 +108,22 @@ def chol_inv_retry(P, jitter: float):
 
 @partial(jax.custom_vjp, nondiff_argnums=(1,))
 def _chol_inv_retry(P, jitter):
-    M = P.shape[0]
-    eye = jnp.eye(M, dtype=P.dtype)
-    blocked = _use_blocked(M, P.dtype)
-    leaf = not blocked and _use_leaf(M, P.dtype)
-    b = _block_for(M) if blocked else BLOCK
-
-    def _factor(Q):
-        # returns (L, extra): extra = leaf-inverse stack (blocked), the
-        # full inverse (leaf), or a dummy (native) — shape-stable so the
-        # while_loop carry stays a single compiled structure per mode
-        if blocked:
-            return _blocked_chol(Q, b)
-        if leaf:
-            return _leaf_chol_inv(Q)
-        return jnp.linalg.cholesky(Q), jnp.zeros((0,), Q.dtype)
+    eye = jnp.eye(P.shape[0], dtype=P.dtype)
 
     def body(carry):
-        jmul, _, _ = carry
-        L, extra = _factor(P + (jmul * jitter) * eye)
+        jmul, _ = carry
+        L = jnp.linalg.cholesky(P + (jmul * jitter) * eye)
         ok = jnp.all(jnp.isfinite(jnp.diagonal(L)))
         # negative jmul marks success; cond() then exits
-        return jnp.where(ok, -jmul, jmul * 1000.0), L, extra
+        return jnp.where(ok, -jmul, jmul * 1000.0), L
 
     def cond(carry):
         jmul = carry[0]
         return (jmul > 0) & (jmul <= 1000.0)
 
-    nb = M // b
-    extra0 = (jnp.zeros((nb, b, b), P.dtype) if blocked
-              else jnp.zeros_like(P) if leaf
-              else jnp.zeros((0,), P.dtype))
-    _, L, extra = lax.while_loop(
-        cond, body, (jnp.asarray(1.0, P.dtype), jnp.zeros_like(P), extra0)
+    _, L = lax.while_loop(
+        cond, body, (jnp.asarray(1.0, P.dtype), jnp.zeros_like(P))
     )
-    if blocked:
-        return L, _blocked_tri_inv(L, extra, b)
-    if leaf:
-        return L, extra
     return L, _tri_inv(L)
 
 

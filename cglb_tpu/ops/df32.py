@@ -1,17 +1,17 @@
-"""Two-float (double-f32) elementwise transcendentals for TPU.
+"""Two-float (double-f32) elementwise transcendentals.
 
-Why this exists (the fp64-on-TPU problem, SURVEY.md section 7 "hard parts"):
-the O(N M) kernel-matrix build is elementwise sqrt/exp over ~1e8 entries.  In
-fp64 those lower to XLA's software double emulation and dominate the CGLB
-common-terms time; in plain f32 the ~1e-7 per-entry rounding is amplified by
-the condition number of the Kuu Cholesky trisolve (kappa ~ 1/sqrt(jitter))
-into ~1e-4 relative error on the bound — measured in round 1 (PERF.md).
+Why this exists (SURVEY.md section 7 "hard parts"): the O(N M) kernel-matrix
+build is elementwise sqrt/exp over ~1e8 entries.  fp64 transcendentals run
+in software at a fraction of the f32 rate; in plain f32 the ~1e-7 per-entry
+rounding is amplified by the condition number of the Kuu Cholesky trisolve
+(kappa ~ 1/sqrt(jitter)) into ~1e-4 relative error on the bound.
 
 The middle path implemented here: every value is carried as an unevaluated
 f32 pair (hi, lo) with hi + lo accurate to ~2^-45 relative (double-f32 /
 "df32"), and sqrt/exp are evaluated with compensated f32 arithmetic only.
-All ops are VPU-friendly jnp primitives (no fp64 emulation inside), giving
-fp64-grade (~1e-12) kernel entries at close to f32 cost.
+All ops are plain f32 jnp primitives, giving fp64-grade (~1e-12) kernel
+entries at close to f32 cost.  Whether this beats native fp64 on a given
+card is a measurement (PERF.md, "Kuf routes").
 
 Techniques are the classic double-double building blocks (Dekker 1971,
 Knuth TAOCP 4.2.2, and the QD library of Hida-Li-Bailey) instantiated for
@@ -238,10 +238,9 @@ def df_exp(x: DF) -> DF:
 
     # exact power of two by direct exponent-bit construction ((k+127)<<23
     # bitcast to f32) — bit-identical to jnp.ldexp for k in [-126, 127]
-    # (guaranteed by the +-87 clamp above: |k| <= 126), but also lowerable
-    # by Mosaic, so this df_exp runs unchanged INSIDE Pallas kernel bodies
-    # (ops/kuf_pallas) where jnp.ldexp's gather-based lowering does not.
-    # XLA's exp2 is a polynomial approximation (~1e-6 relative — measured),
+    # (guaranteed by the +-87 clamp above: |k| <= 126), and it also lowers
+    # inside Pallas kernel bodies, where jnp.ldexp's gather-based lowering
+    # does not.  XLA's exp2 is a polynomial approximation (~1e-6 relative),
     # hence bit manipulation rather than 2.0**k.
     ki = k.astype(jnp.int32)
     scale = jax.lax.bitcast_convert_type((ki + 127) << 23, jnp.float32)

@@ -1,17 +1,20 @@
-"""Stationary GP kernels (ARD), TPU-first.
+"""Stationary GP kernels (ARD).
 
 Covers the reference's kernel zoo: SquaredExponential (RBF) and Matern32 with ARD
 lengthscales and a positive variance (reference: cglb/backend/tensorflow/
 interface.py:178-197, cglb/backend/config.py:72-81).
 
-Design notes (TPU):
+Design notes:
 - Cross-covariances are computed through the matmul form of squared distances,
-  ``||a||^2 + ||b||^2 - 2 a.b``, so the O(N*M*D) work lands on the MXU instead of a
-  broadcast-subtract (which would materialize an [N, M, D] intermediate in HBM).
+  ``||a||^2 + ||b||^2 - 2 a.b``, so the O(N*M*D) work is one matmul instead of a
+  broadcast-subtract (which would materialize an [N, M, D] intermediate).  The
+  matmul runs at Precision.HIGHEST: an f32 product at the default precision
+  runs in TF32 on the GPU, and the cancellation in the expansion would turn its
+  ~1e-3 relative error into distance errors of the order of the norms.
 - All functions are pure; kernels are pytree dataclasses of Params, so they flow
   through jit/grad/vmap/shard_map directly.
 - The streaming Pallas matvec (ops/matvec_pallas.py) re-implements the same math
-  tile-by-tile; `K` here is the dense oracle it is tested against.
+  block by block; `K` here is the dense oracle it is tested against.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import math
 from functools import singledispatch
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
 
 from ..struct import pytree_dataclass
@@ -34,6 +38,8 @@ __all__ = [
     "make_kernel",
     "KERNELS",
 ]
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @pytree_dataclass
@@ -55,14 +61,14 @@ class Matern32:
 def scaled_sq_dist(X, Z, lengthscales):
     """Pairwise squared distances of lengthscale-scaled inputs, [N, M].
 
-    Uses the matmul expansion so the dominant cost is one [N,D]x[D,M] matmul on
-    the MXU. Clamped at zero against cancellation.
+    Uses the matmul expansion so the dominant cost is one [N,D]x[D,M] matmul
+    (at HIGHEST, see the module notes). Clamped at zero against cancellation.
     """
     Xs = X / lengthscales
     Zs = Z / lengthscales
     xn = jnp.sum(jnp.square(Xs), axis=-1)[:, None]
     zn = jnp.sum(jnp.square(Zs), axis=-1)[None, :]
-    cross = Xs @ Zs.T
+    cross = jnp.dot(Xs, Zs.T, precision=_HIGHEST)
     d2 = xn + zn - 2.0 * cross
     return jnp.maximum(d2, 0.0)
 
@@ -70,7 +76,7 @@ def scaled_sq_dist(X, Z, lengthscales):
 def _sq_dist_self(X, lengthscales):
     Xs = X / lengthscales
     xn = jnp.sum(jnp.square(Xs), axis=-1)
-    d2 = xn[:, None] + xn[None, :] - 2.0 * (Xs @ Xs.T)
+    d2 = xn[:, None] + xn[None, :] - 2.0 * jnp.dot(Xs, Xs.T, precision=_HIGHEST)
     d2 = jnp.maximum(d2, 0.0)
     # exact zeros on the diagonal (guards Matern's sqrt grad at r=0)
     return d2 * (1.0 - jnp.eye(X.shape[0], dtype=X.dtype))

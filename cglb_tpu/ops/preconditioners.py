@@ -34,13 +34,11 @@ class NystromPreconditioner:
     A: jnp.ndarray        # [M, N]
     LB: jnp.ndarray       # [M, M], lower
     sigma_sq: jnp.ndarray  # []
-    # optional LB^-1: when present, every apply is matmul-only.  On TPU each
-    # [M, M] triangular_solve in the CG loop is an XLA expander instance
-    # costing seconds of COMPILE time (~10 call sites in the loss+grad graph
-    # -- PERF.md "Cold compile"), and at runtime trisolve lowers ~3x slower
-    # than the equal-FLOPs matmul.  Forward error is eps*kappa(B) either way
-    # (a backward-stable trisolve has the same FORWARD envelope), and the
-    # sum-of-squares rz below is nonnegative by construction regardless.
+    # optional LB^-1: when present, every apply is matmul-only (no [M, M]
+    # triangular solve inside the CG loop).  Forward error is eps*kappa(B)
+    # either way (a backward-stable trisolve has the same FORWARD envelope),
+    # and the sum-of-squares rz below is nonnegative by construction
+    # regardless.
     Ci: jnp.ndarray = None
 
 
@@ -50,10 +48,10 @@ def mat_vec(precond, r: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     Returns (z, rz) with z = P r (shape [B, N]) and rz[b] = r_b^T P r_b (shape [B]).
 
     The apply runs in A's dtype: constructing the preconditioner with
-    f32-cast A/LB keeps the per-CG-iteration cost on the TPU fast path (fp64
-    [M, N] contractions are an order of magnitude slower) — preconditioning
-    quality and the stopping/error terms tolerate 1e-7 relative noise.
-    Inputs/outputs stay in r's dtype.
+    f32-cast A/LB halves the bytes the per-CG-iteration [M, N] contractions
+    read — preconditioning quality and the stopping/error terms tolerate
+    1e-7 relative noise.  Every product asks for HIGHEST, so an f32 apply
+    never runs in TF32.  Inputs/outputs stay in r's dtype.
     """
     if isinstance(precond, IdentityPreconditioner):
         return r, jnp.sum(r * r, axis=-1)

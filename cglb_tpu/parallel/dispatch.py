@@ -5,9 +5,9 @@ parallel/sharded.sharded_train_step) runs the ENTIRE feval — common terms,
 a full preconditioned-CG solve, bound assembly, backward, optimizer update —
 as ONE device dispatch.  At houseelectric-class N (>=1M rows) each CG
 iteration is a multi-second streaming matvec, so one dispatch can run many
-minutes.  Environments that bound device-dispatch wall time (remote TPU
-workers with liveness watchdogs, preemptible fleets where a long dispatch
-widens the non-checkpointable window) kill it.
+minutes.  Environments that bound device-dispatch wall time (workers with
+liveness watchdogs, preemptible fleets where a long dispatch widens the
+non-checkpointable window) kill it.
 
 This module splits the SAME step — same math, same iterate sequence — into
 host-orchestrated dispatches, each individually short:
@@ -57,16 +57,15 @@ __all__ = ["bounded_train_step"]
 
 
 def bounded_train_step(cfg: _cglb.CGLBConfig, optimizer, *, mesh=None,
-                       matvec: str = "streaming", block: int = 1024,
+                       matvec: str = "streaming", block: int = None,
                        iters_per_dispatch: int = 8):
     """Build ``step(params, opt_state, v0, X, Y) -> (params, opt_state,
     CGLBAux, loss)`` — drop-in for ``sharded_train_step``'s compiled step,
     but cut into bounded dispatches (see module docstring).
 
-    mesh=None runs the single-device path (models/cglb.loss semantics,
-    including the cheap CG matvec tier when ``cfg.max_error >= 0.5`` —
-    the same gate as backend.Model.loss_fn); with a mesh it mirrors
-    parallel/sharded.sharded_cglb_loss.
+    mesh=None runs the single-device path (models/cglb.loss semantics);
+    with a mesh it mirrors parallel/sharded.sharded_cglb_loss.  block: the
+    streaming kernel's block size (None = its default).
     """
     import optax
 
@@ -76,34 +75,28 @@ def bounded_train_step(cfg: _cglb.CGLBConfig, optimizer, *, mesh=None,
     mixed = cfg.common_dtype == "mixed"
     gram = mixed and cfg.logdet_variant != "n2m"
     a_dtype = jnp.dtype(cfg.precond_dtype)
-    fast_cg = cfg.max_error >= 0.5 and mesh is None and matvec == "streaming"
+    blocks = () if block is None else (block, block)
     cfg_fixed_v = _struct.replace(cfg, vzero=True)
 
     def _build_matvec(params, X):
-        """(accurate, cg_tier) operator pair for this params/X, traced."""
+        """The (K + s2 I) operator for this params/X, traced."""
         sigma_sq = params.noise_variance.value
         if matvec == "streaming":
             if mesh is None:
                 from ..ops import matvec_pallas as _mvp
 
-                blk = 1024 if X.shape[0] >= 16384 else 512
-                acc, cheap = _mvp.make_streaming_operator_pair(
-                    params.kernel, X, sigma_sq, blk, blk)
-                return acc, (cheap if fast_cg else acc)
+                return _mvp.make_streaming_operator(
+                    params.kernel, X, sigma_sq, *blocks)
             from . import streaming as _streaming
 
-            mv = _streaming.make_sharded_streaming_operator(
-                mesh, params.kernel, X, sigma_sq,
-                block_i=block, block_j=block)
-            return mv, mv
+            return _streaming.make_sharded_streaming_operator(
+                mesh, params.kernel, X, sigma_sq, *blocks)
         if matvec == "dense":
             if mesh is None:
-                mv = _op.make_dense_operator(params.kernel, X, sigma_sq)
-            else:
-                from .sharded import make_sharded_operator
+                return _op.make_dense_operator(params.kernel, X, sigma_sq)
+            from .sharded import make_sharded_operator
 
-                mv = make_sharded_operator(mesh, params.kernel, X, sigma_sq)
-            return mv, mv
+            return make_sharded_operator(mesh, params.kernel, X, sigma_sq)
         raise ValueError(f"unknown matvec mode {matvec!r}")
 
     def _precond_err(params, X, Y):
@@ -134,22 +127,20 @@ def bounded_train_step(cfg: _cglb.CGLBConfig, optimizer, *, mesh=None,
     @jax.jit
     def _init(params, X, Y, v0):
         P, err_t = _precond_err(params, X, Y)
-        _, mv_cg = _build_matvec(params, X)
-        carry = _cg.cg_init(mv_cg, err_t, v0, P)
+        carry = _cg.cg_init(_build_matvec(params, X), err_t, v0, P)
         return carry, P, err_t
 
     @jax.jit
     def _advance(params, X, carry, P, err_t, max_error, cap):
-        _, mv_cg = _build_matvec(params, X)
-        return _cg.cg_advance(mv_cg, err_t, P, carry, max_error, cap,
-                              cfg.restart_cg_iters)
+        return _cg.cg_advance(_build_matvec(params, X), err_t, P, carry,
+                              max_error, cap, cfg.restart_cg_iters)
 
     @partial(jax.jit, donate_argnums=(0, 1))
     def _finalize(params, opt_state, X, Y, v):
         def loss_fn(p):
             if mesh is None:
-                acc, _ = _build_matvec(p, X)
-                return _cglb.loss(p, X, Y, v, cfg_fixed_v, matvec=acc)
+                return _cglb.loss(p, X, Y, v, cfg_fixed_v,
+                                  matvec=_build_matvec(p, X))
             from .sharded import sharded_cglb_loss
 
             return sharded_cglb_loss(p, X, Y, v, cfg_fixed_v, mesh,
@@ -183,8 +174,9 @@ def bounded_train_step(cfg: _cglb.CGLBConfig, optimizer, *, mesh=None,
         # Free the preconditioner before the finalize dispatch: P.A is the
         # one [M, N]-sized buffer this driver keeps alive across dispatches
         # (4 GiB at N=1M/M=1024 f32), and finalize's common-terms rebuild
-        # peaks HBM on its own — holding both can OOM a 16 GiB chip that
-        # the monolithic step (where XLA frees A before the backward) fits.
+        # peaks device memory on its own — holding both can exceed a card
+        # that the monolithic step (where XLA frees A before the backward)
+        # fits.
         for leaf in jax.tree_util.tree_leaves(P):
             if hasattr(leaf, "delete"):
                 leaf.delete()

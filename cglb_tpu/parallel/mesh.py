@@ -2,10 +2,11 @@
 
 The reference's only multi-device mechanism is gpytorch's MultiDeviceKernel —
 row-block data parallelism for kernel evaluation across CUDA GPUs
-(cglb/backend/pytorch/interface.py:241-244).  The TPU-native equivalent is a
-1-D ``jax.sharding.Mesh`` over the data axis: kernel-matrix columns, CG state,
+(cglb/backend/pytorch/interface.py:241-244).  The equivalent here is a 1-D
+``jax.sharding.Mesh`` over the data axis: kernel-matrix columns, CG state,
 and Kuf columns are sharded along N; M x M terms stay replicated; XLA inserts
-the psum/all-gather collectives over ICI.
+the psum/all-gather collectives (NCCL between GPUs).  A 1-D mesh fits cards
+joined all to all, where every pair talks at the same rate.
 """
 
 from __future__ import annotations
@@ -28,21 +29,22 @@ _DIST_INITIALIZED = False
 def maybe_initialize_distributed() -> bool:
     """Multi-host entry point: call ``jax.distributed.initialize`` when the
     environment asks for it, so ``jax.devices()`` (and therefore data_mesh /
-    --mesh all) spans every host of a pod slice over DCN.
+    --mesh all) spans every host.
 
     Activation (first match wins; returns True when initialization ran):
 
     - ``CGLB_DIST=auto`` — ``jax.distributed.initialize()`` with no
-      arguments: on TPU pods JAX discovers the coordinator and process
-      topology from the TPU metadata (the production multi-host path).
+      arguments, for clusters whose scheduler JAX can read the coordinator
+      and process topology from.
     - ``CGLB_COORDINATOR`` (+ ``CGLB_NUM_PROCESSES``, ``CGLB_PROCESS_ID``) —
-      explicit addressing, used for multi-process CPU/GPU launches and the
-      2-process CPU dry-run test (tests/test_distributed.py).
+      explicit addressing (``localhost:<port>`` for one machine), used for
+      multi-process CPU/GPU launches and the 2-process CPU dry-run test
+      (tests/test_distributed.py).
     - otherwise: no-op (single-process; the default everywhere else).
 
     Idempotent: repeated calls (CLI + library both call it) initialize once.
-    SURVEY.md section 5.8: ICI collectives come from jit/GSPMD over the
-    mesh; this hook is the missing DCN bootstrap (VERDICT r2 missing #4).
+    SURVEY.md section 5.8: the collectives come from jit/GSPMD over the
+    mesh; this hook is the multi-host bootstrap.
     """
     global _DIST_INITIALIZED
     if _DIST_INITIALIZED:

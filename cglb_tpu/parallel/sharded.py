@@ -1,23 +1,23 @@
 """Data-sharded CGLB/SGPR computation over a device mesh.
 
-TPU-native replacement for the reference's MultiDeviceKernel data parallelism
+Replacement for the reference's MultiDeviceKernel data parallelism
 (cglb/backend/pytorch/interface.py:241-244,291-295) and the missing multi-node
 story (SURVEY.md section 5.8): everything N-sized is sharded along the mesh's
 data axis with GSPMD sharding constraints, everything M-sized is replicated,
-and XLA inserts all_gather/psum collectives over ICI.
+and XLA inserts all_gather/psum collectives (NCCL on GPUs).
 
 Layout:
     X            [N, D]   sharded rows      (data)
     Y, err       [N, 1]   sharded rows
-    Kuf, A       [M, N]   sharded columns  -> AAT = A A^T is an ICI psum
-    K(X,X)+s2I   [N, N]   sharded columns   (dense path; N^2/devices per chip)
+    Kuf, A       [M, N]   sharded columns  -> AAT = A A^T is a psum
+    K(X,X)+s2I   [N, N]   sharded columns   (dense path; N^2/devices each)
     v, r, p      [B, N]   sharded columns inside CG; scalar reductions psum
 
 The CG while_loop body is identical to the single-device one (ops/cg.py) — only
 the matvec closure and the common-terms builder change, which is the point of
-the operator abstraction.  For N beyond HBM the dense column block is replaced
-by the streaming Pallas matvec per shard (ops/matvec_pallas.py) — same sharding,
-no K materialization.
+the operator abstraction.  For N beyond device memory the dense column block is
+replaced by the streaming Pallas matvec per shard (ops/matvec_pallas.py) — same
+sharding, no K materialization.
 """
 
 from __future__ import annotations
@@ -80,12 +80,10 @@ def _sharded_common_terms(mesh: Mesh, params: _sgpr.SGPRParams, X,
     Mirrors models/sgpr.common_terms' knobs: ``mixed`` selects the df32
     kernel profiles, ``gram`` (defaults to ``mixed``) restructures the
     O(N M^2) contraction as the Gram matrix G = Kuf Kuf^T (per-shard
-    partials, psum over ICI) with AAT = Cinv G Cinv^T — the same fused
+    partials, psum across devices) with AAT = Cinv G Cinv^T — the same fused
     chol+inverse primitive as the single-device gram path (ops/chol64,
-    models/sgpr._kuu_chol_inv), so the emulated-fp64 [M, N] trisolve never
-    runs, the numerics cannot drift between layouts, and the per-instance
-    ~22-30 s fp64-expander compile cost (PERF.md "Cold compile") is paid
-    for M x M replicated factors only.  A is materialized in a_dtype for
+    models/sgpr._kuu_chol_inv), so the fp64 [M, N] trisolve never runs and
+    the numerics cannot drift between layouts.  A is materialized in a_dtype for
     the preconditioner only.  The n2m ablation passes gram=False (needs
     full-precision A) while keeping the df32 build."""
     Z = params.inducing_Z.value
@@ -95,13 +93,9 @@ def _sharded_common_terms(mesh: Mesh, params: _sgpr.SGPRParams, X,
     if mixed and gram:
         # Delegate to the single-device gram builder in mesh mode: df32 Kuf
         # is built per N-chunk under lax.map with every chunk row-sharded
-        # over the data axis (the chunk Gram partials psum over ICI), so the
-        # [M, N]-scale fp64-emulation temporaries never materialize.
-        # Unchunked, the int8-limb/emulated-fp64 split of the full per-shard
-        # Gram product allocates [limbs, M, N/devices] f32 — measured 45 GB
-        # at houseelectric scale on one v5e chip (PERF.md "Large-N training
-        # graph").  Same _gram_outer/_mm_f64grade custom-vjp primitives as
-        # the single-device path, so numerics/gradients are layout-invariant.
+        # over the data axis (the chunk Gram partials psum across devices),
+        # so no [M, N]-scale temporary materializes.  Same code as the
+        # single-device path, so numerics/gradients are layout-invariant.
         L, Cinv = _sgpr._kuu_chol_inv(params, jitter)
         A, AAT, _ = _sgpr._gram_terms(
             params, L, X, sigma, a_dtype=a_dtype, Cinv=Cinv,
@@ -112,10 +106,8 @@ def _sharded_common_terms(mesh: Mesh, params: _sgpr.SGPRParams, X,
         LB, LBi = _chol64.chol_inv(B)
     else:
         if mixed:
-            # TPU mesh: per-device Pallas build via shard_map; otherwise
-            # the XLA build, GSPMD-row-partitioned (sgpr._kuf_block_df32)
-            kuf = _sgpr._kuf_block_df32(params, Z, X, mesh=mesh,
-                                        data_axis=DATA_AXIS)  # [M, N]
+            # GSPMD partitions the XLA build row-wise (sgpr._kuf_block_df32)
+            kuf = _sgpr._kuf_block_df32(params, Z, X)  # [M, N]
         else:
             kuf = _k.K(params.kernel, Z, X)
         kuf = _cshard(mesh, kuf, P(None, DATA_AXIS))
@@ -131,7 +123,7 @@ def _sharded_common_terms(mesh: Mesh, params: _sgpr.SGPRParams, X,
 
 def sharded_cglb_loss(params, X, Y, v0, cfg: CGLBConfig, mesh: Mesh,
                       jitter: float = None, matvec: str = "dense",
-                      block: int = 512, max_error=None,
+                      block: int = None, max_error=None,
                       chunk_size: int = None) -> Tuple[jnp.ndarray, CGLBAux]:
     """CGLB loss with all N-sized tensors sharded over the mesh's data axis.
 
@@ -139,15 +131,14 @@ def sharded_cglb_loss(params, X, Y, v0, cfg: CGLBConfig, mesh: Mesh,
     way (the default "mixed" runs df32 profiles + gram-form contractions);
     only the layout differs.  Call under jit with the mesh's devices visible.
 
-    matvec: "dense" materializes K column-sharded ([N, N/devices] per chip —
-    caps N at ~200k/chip); "streaming" runs the Pallas tile kernel per column
-    shard (K never in HBM — the multi-chip large-N path, SURVEY.md 5.7/5.8).
-    block: streaming tile size; the padded N must divide mesh_size * block.
+    matvec: "dense" materializes K column-sharded ([N, N/devices] per
+    device); "streaming" runs the Pallas kernel per column shard (K never
+    stored — the multi-device large-N path, SURVEY.md 5.7/5.8).
+    block: streaming block size (None = the kernel's default).
     max_error: optional TRACED override of cfg.max_error (scalar jit
     argument), mirroring models.cglb.loss — one compiled program serves
     every level of the adaptive-tolerance schedule (-o scipy_tol) on the
-    sharded path too (the sharded streaming matvec always contracts at
-    HIGHEST, so tight tolerances are sound here without a tier switch).
+    sharded path too.
     """
     from .. import config as _config
     from . import streaming as _streaming
@@ -157,7 +148,7 @@ def sharded_cglb_loss(params, X, Y, v0, cfg: CGLBConfig, mesh: Mesh,
     mixed = cfg.common_dtype == "mixed"
     gram = mixed and cfg.logdet_variant != "n2m"
     # chunk-level remat above the same size threshold as models/cglb.bound:
-    # per-device HBM scales with N/devices, but the stacked scan residuals
+    # per-device memory scales with N/devices, but the stacked scan residuals
     # an un-rematted backward stores are [M, N]-aggregate across the mesh
     remat = (N * params.num_inducing
              > _cglb.REMAT_THRESHOLD_ELEMENTS * mesh.shape[DATA_AXIS])
@@ -173,9 +164,9 @@ def sharded_cglb_loss(params, X, Y, v0, cfg: CGLBConfig, mesh: Mesh,
     b += _cglb._logdet_bound(params, ct, X, Y, cfg.logdet_variant)
 
     if matvec == "streaming":
+        blocks = () if block is None else (block, block)
         mv = _streaming.make_sharded_streaming_operator(
-            mesh, params.kernel, X, sigma_sq, block_i=block, block_j=block
-        )
+            mesh, params.kernel, X, sigma_sq, *blocks)
     elif matvec == "dense":
         mv = make_sharded_operator(mesh, params.kernel, X, sigma_sq)
     else:
@@ -188,7 +179,7 @@ def sharded_cglb_loss(params, X, Y, v0, cfg: CGLBConfig, mesh: Mesh,
 
 
 def sharded_train_step(mesh: Mesh, cfg: CGLBConfig, optimizer,
-                       matvec: str = "dense", block: int = 512):
+                       matvec: str = "dense", block: int = None):
     """Build a jitted full training step over the mesh: value_and_grad of the
     sharded CGLB loss + optimizer update, CG warm start in the carry."""
     import optax

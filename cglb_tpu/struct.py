@@ -1,7 +1,7 @@
 """Minimal pytree dataclasses.
 
 The reference stores model state in framework Parameter objects (GPflow Parameter /
-torch nn.Parameter).  The TPU-native design is functional: model parameters are
+torch nn.Parameter).  This design is functional: model parameters are
 immutable pytree dataclasses that flow through ``jax.jit`` / ``jax.grad`` /
 ``shard_map`` like any other array container.
 

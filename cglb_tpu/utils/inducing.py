@@ -10,7 +10,7 @@ Two implementations:
 - ``conditional_variance_numpy``: host-side oracle, mirrors the classic algorithm.
 - ``conditional_variance``: device version — the per-step kernel-column evaluation
   and rank-1 variance update run under jit with a ``lax.fori_loop`` carry, so the
-  O(N M^2) scoring runs on TPU (the reference's is all-host; SURVEY.md flags it as
+  O(N M^2) scoring runs on the device (the reference's is all-host; SURVEY.md flags it as
   a setup-time bottleneck at large N).
 
 Both permute the inputs with the process seed first (the upstream algorithm does;

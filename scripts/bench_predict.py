@@ -3,14 +3,11 @@ the full 33% test split (N_test=13,525) at the reference's prediction CG
 tolerance (1e-3, cglb/backend/tensorflow/models.py:195), streaming
 cross-matvec, hoisted PredictCache (one training-side CG; per-batch work is
 cache-reads + cross products only — the reference's PredictCG use_cache
-role).  Operands on device; chained-readback discipline per PERF.md."""
+role).  Operands are generated on the device."""
 import sys
 import time
 
 sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
-import faulthandler
-
-faulthandler.dump_traceback_later(1200, repeat=True, file=sys.stderr)
 
 import jax
 

@@ -1,9 +1,9 @@
-"""Single-chip CGLB training at houseelectric scale (SURVEY.md 5.7).
+"""Single-card CGLB training at houseelectric scale (SURVEY.md 5.7).
 
 Runs REAL optimizer steps (loss + grad + Adam update) on N>=1M synthetic
 rows with the streaming Pallas matvec and mixed gram-form common terms —
 the proof that the training graph, not just the standalone matvec,
-compiles and executes at large N on one chip.  Records compile wall,
+compiles and executes at large N on one card.  Records compile wall,
 warm per-feval wall, Adam step time, and device memory stats.
 
 Reference role: the large-N axis the reference serves through KeOps
@@ -38,10 +38,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--max-cg-iters", type=int, default=16,
                     help="CG cap: at N~1M each CG iteration is a multi-"
-                         "second streaming matvec and the remote worker's "
-                         "watchdog kills dispatches that run >~10 min; 16 "
-                         "covers the measured warm-start training regime "
-                         "(kin40k protocol: 7.2 mean / 20 max steps/feval)")
+                         "second streaming matvec; 16 covers the warm-start "
+                         "training regime (a handful of steps per feval)")
     args = ap.parse_args()
 
     import jax
@@ -95,7 +93,7 @@ def main() -> None:
         (l, aux), g = jax.value_and_grad(
             lambda q: loss_fn(q, c, X, Y), has_aux=True)(p)
         # consume every gradient leaf or XLA dead-code-eliminates the
-        # backward (PERF.md platform quirks)
+        # backward
         s = sum(jnp.sum(leaf) for leaf in jax.tree_util.tree_leaves(g))
         return l + 1e-30 * s, aux
 

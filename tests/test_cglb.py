@@ -102,8 +102,8 @@ def test_vzero_gradients_match_finite_differences(rng):
 
 
 def test_fast_precond_matches_fp64_precond(rng):
-    """float32 preconditioner (default, TPU fast path) changes the bound by
-    at most ~1e-6 relative vs the fp64 preconditioner."""
+    """float32 preconditioner (the default) changes the bound by at most
+    ~1e-6 relative vs the fp64 preconditioner."""
     X, Y, params, _ = _setup(rng)
     v0 = cglb.init_v0(X.shape[0])
     b32, _ = cglb.bound(params, X, Y, v0,
@@ -215,9 +215,8 @@ def test_predict_cache_matches_direct_predict(rng):
     np.testing.assert_allclose(np.asarray(v_m), np.asarray(v_direct),
                                rtol=1e-6, atol=1e-8)
 
-    # the one-shot predict_f must plumb mixed through to the prepare —
-    # the non-mixed [M, N] emulated-fp64 trisolve OOMs a 16 GiB chip at
-    # M=4096 (observed live; the batched path passed it, this one forgot)
+    # the one-shot predict_f must plumb mixed through to the prepare (the
+    # non-mixed path materializes the [M, N] fp64 trisolve)
     m_f, v_f = cglb.predict_f(params, X, Y, v0, Xs, cfg, mixed=True)
     np.testing.assert_allclose(np.asarray(m_f), np.asarray(m_m),
                                rtol=1e-12, atol=1e-12)
@@ -292,11 +291,13 @@ def test_backend_batched_prediction_uses_cache_and_matches(rng):
 
 
 def test_cheap_cg_tier_bound_still_valid(rng):
-    """The CG-loop operator may be arbitrarily inexact without invalidating
-    the bound: CG only proposes v, and the assembly re-evaluates r with the
-    accurate operator.  Emulates the single-pass-bf16 training tier (whose
-    ~1e-3 error CPU tests cannot reproduce — f32 matmuls are exact here) by
-    perturbing the CG operator 1e-3 relative."""
+    """A v proposed by an inexact CG operator still yields a valid bound:
+    the assembly re-evaluates r with the accurate operator, so operator
+    error only loosens the reported bound.  The CG operator is perturbed
+    1e-3 relative; the bound is then assembled at the v it proposed (the
+    fixed-v form the dispatch-bounded step also uses)."""
+    from cglb_tpu import struct
+    from cglb_tpu.ops import cg as cg_mod
     from cglb_tpu.ops import operators as op_mod
 
     X, Y, params, gparams = _setup(rng, n=100, m=12)
@@ -310,10 +311,17 @@ def test_cheap_cg_tier_bound_still_valid(rng):
                                      dtype=X.dtype)
 
     def cheap(p):
-        return acc(p) + p @ noise  # fixed linear perturbation, like bf16 tiles
+        return acc(p) + p @ noise  # fixed linear perturbation
 
-    b_cheap, aux_cheap = cglb.bound(params, X, Y, v0, cfg, matvec=acc,
-                                    matvec_cg=cheap)
+    ct = sgpr.common_terms(params, X, mixed=True)
+    P = cglb._make_precond(ct, sigma_sq, cfg)
+    err_t = (Y - cglb.mean_apply(params.mean, X)).T
+    v_cheap, _ = cg_mod.preconditioned_cg(cheap, err_t, v0, P,
+                                          cfg.max_error, cfg.max_cg_iters,
+                                          cfg.restart_cg_iters)
+    b_cheap, aux_cheap = cglb.bound(params, X, Y, v_cheap,
+                                    struct.replace(cfg, vzero=True),
+                                    matvec=acc)
     b_acc, aux_acc = cglb.bound(params, X, Y, v0, cfg, matvec=acc)
     lml = float(gpr.log_marginal_likelihood(gparams, X, Y))
     # valid lower bound with either CG operator
@@ -322,7 +330,7 @@ def test_cheap_cg_tier_bound_still_valid(rng):
     # and the cheap-tier bound is close to the accurate-tier one (the
     # operator error only loosens the reported error bound slightly)
     assert abs(float(b_cheap) - float(b_acc)) < 1.0
-    assert np.isfinite(float(aux_cheap.cg_residual_error))
+    assert np.all(np.isfinite(np.asarray(aux_cheap.v)))
 
 
 def _walk_eqns(jaxpr):
@@ -364,15 +372,11 @@ def _factorization_census(rng):
 
 
 def test_training_graph_factorization_budget(rng, monkeypatch):
-    """Compile-time regression guard (PERF.md "Compile time"): the mixed
-    CGLB loss+grad must keep cholesky/triangular_solve instances one-shot
-    and OUT of the CG while_loop — on TPU every such instance is an XLA
-    expander costing seconds of compile, and the round-2 graph had 10
-    preconditioner trisolves inside the loop.  Expander mode pinned so the
-    census is platform-independent (blocked mode is censused below)."""
-    from cglb_tpu.ops import chol64
-
-    monkeypatch.setattr(chol64, "ALGO", "expander")
+    """Graph regression guard: the mixed CGLB loss+grad must keep
+    cholesky/triangular_solve instances one-shot and OUT of the CG
+    while_loop — every factorization or solve inside the loop would run on
+    each CG iteration (an earlier graph had 10 preconditioner trisolves
+    there)."""
     fact = _factorization_census(rng)
     # no trisolve inside any while_loop: the CG loop's preconditioner
     # applies are matmuls (the jitter retry runs only a cholesky there)
@@ -382,24 +386,10 @@ def test_training_graph_factorization_budget(rng, monkeypatch):
     assert 1 <= len(fact["triangular_solve"]) <= 3, fact
 
 
-def test_training_graph_factorization_budget_blocked(rng, monkeypatch):
-    """Blocked mode (the TPU production path at M >= 512): the blocked
-    kernels add a small bounded set of instances inside their own
-    scan/while bodies — still O(1), never proportional to CG iterations."""
-    from cglb_tpu.ops import chol64
-
-    monkeypatch.setattr(chol64, "ALGO", "blocked")
-    monkeypatch.setattr(chol64, "BLOCK", 8)
-    fact = _factorization_census(rng)
-    assert 1 <= len(fact["cholesky"]) <= 5, fact
-    assert 1 <= len(fact["triangular_solve"]) <= 6, fact
-
-
 def test_default_predict_batch_scales_inverse_with_m(rng):
     """The default prediction batch must scale as 1/M: the per-batch Kus
-    build makes ~[8, M, B] f32 temporaries, and a fixed 1e5 default let a
-    40k-row metrics eval compile a 19.5 GiB program at M=4096 on a 16 GiB
-    chip (observed live)."""
+    build makes ~[8, M, B] f32 temporaries, so a fixed 1e5 default would
+    grow the program with M."""
     from cglb_tpu.backend import Model
 
     X, Y, params, _ = _setup(rng, n=60, m=8)

@@ -1,8 +1,7 @@
 """Multi-host bootstrap: jax.distributed entry point (SURVEY.md section 5.8).
 
-The production path is `CGLB_DIST=auto` on a TPU pod (JAX discovers the
-coordinator from TPU metadata).  Here the same hook is exercised with the
-explicit-addressing variant on TWO CPU PROCESSES: each worker initializes
+`CGLB_DIST=auto` lets JAX discover the coordinator from a cluster scheduler.
+Here the same hook is exercised with the explicit-addressing variant on TWO CPU PROCESSES: each worker initializes
 via CGLB_COORDINATOR/CGLB_NUM_PROCESSES/CGLB_PROCESS_ID, builds the global
 data_mesh, and runs a psum-reduced jitted computation over DCN-style
 cross-process collectives.  Fresh subprocesses are required — the test

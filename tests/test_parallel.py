@@ -59,10 +59,10 @@ def test_sharded_gradients_match_single_device(mesh8, rng):
     g_sh = jax.jit(
         jax.grad(lambda p: sharded.sharded_cglb_loss(p, Xs, Ys, v0, cfg, mesh8)[0])
     )(params)
-    # tolerance is f32-accumulation grade: the gram path's backward runs
-    # dG @ Kuf at f32-HIGHEST (_gram_outer) in BOTH layouts, but sharded
-    # and single-device accumulate in different orders (~1e-5 relative);
-    # fp64 contributions still agree to 1e-9
+    # tolerance is f32-accumulation grade: the f32 terms (the
+    # preconditioner's A) accumulate in different orders in the sharded
+    # and single-device layouts (~1e-5 relative); fp64 contributions still
+    # agree to 1e-9
     for a, b in zip(jax.tree_util.tree_leaves(g_ref),
                     jax.tree_util.tree_leaves(g_sh)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
@@ -99,7 +99,7 @@ def test_uneven_shard_sizes_still_work(mesh8, rng):
 
 
 def test_sharded_streaming_loss_matches_single_device(mesh8, rng):
-    """The multi-chip large-N path: CGLB loss on the column-sharded STREAMING
+    """The multi-device large-N path: CGLB loss on the column-sharded STREAMING
     Pallas matvec agrees with the single-device dense-fp64 loss (streaming K
     entries carry ~1e-6 relative error; tolerance sized accordingly)."""
     X, Y, params = _setup(rng, n=8 * 32, m=12)
@@ -259,15 +259,16 @@ def test_scipy_tol_under_mesh(mesh8, rng):
     from cglb_tpu.backend import Model
     from cglb_tpu.utils import training
 
-    # Same shapes as the single-device schedule test (test_training.py
-    # test_scipy_tol_minimize_levels_and_depth): at n=64/d=3 the loose-CG
-    # objective jitter is large enough relative to the surface that L-BFGS
-    # can legitimately grind hundreds of iterations inside one level, so
-    # whether the floor fits a small budget depends on fp-level trajectory
-    # luck (it flipped when 068d2d1 re-routed the sharded gram through the
-    # chunked builder — numerics equal to tolerance, not bitwise).
-    X, Y, params = _setup(rng, n=120, d=2, m=10)
-    Xn, Yn = np.asarray(X), np.asarray(Y)
+    # The single-device schedule test's problem (test_training.py
+    # test_scipy_tol_minimize_levels_and_depth: same data generator, shapes
+    # and initial noise).  On a near-noiseless target the loose-CG level can
+    # keep making real progress for hundreds of L-BFGS iterations, so
+    # whether the floor fits the budget would depend on the trajectory, not
+    # on the schedule under test.
+    from test_training import _data, _sgpr_params
+
+    Xn, Yn = _data(rng, n=120, d=2)
+    params = _sgpr_params(rng, Xn, Yn, m=10)
 
     model = Model("cglb", params, (Xn, Yn), run_cfg=cglb_mod.CGLBConfig(),
                   mesh=mesh8)
@@ -283,7 +284,8 @@ def test_scipy_tol_under_mesh(mesh8, rng):
 
 def test_sharded_chunked_gram_matches_single_device(mesh8, rng):
     """The mesh-aware chunked gram path (the houseelectric-scale fix: per-
-    chunk row-sharded df32 Kuf under lax.map, Gram partials psum over ICI)
+    chunk row-sharded df32 Kuf under lax.map, Gram partials psum across
+    devices)
     is numerically identical to the unchunked sharded path and matches the
     single-device loss — values AND gradients."""
     X, Y, params = _setup(rng, n=96, d=3, m=8)
